@@ -1,0 +1,22 @@
+"""qwen1.5-0.5b — [dense] 24L d_model=1024 16H (GQA kv=16 == MHA) d_ff=2816 vocab=151936.
+
+[hf:Qwen/Qwen1.5-0.5B; hf] QKV bias.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-0.5b",
+    family="dense",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=2816,
+    vocab_size=151_936,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,
+    sharding="tp",
+    subquadratic=False,
+    notes="QKV bias; MHA (kv=16)",
+)

@@ -1,0 +1,1160 @@
+"""Real-execution chunked-prefill engine on PyTorch: the paper's serving loop
+running actual forward passes, on an NVIDIA GPU through the port's CUDA
+kernels (or on the CPU through their plain versions, for tests).
+
+The port of ``repro/engine/engine.py``.  Continuous batching with PAGED KV
+storage (vLLM layout):
+  * ``n_slots`` fixed *batch rows*; a request binds a slot at its FIRST
+    scheduled chunk (late binding) and keeps it until it finishes or is
+    preempted.
+  * K/V live in a physical page pool ``(layers, n_blocks + 1, block_size,
+    kv_heads, head_dim)`` whose page ids are exactly the ``KVBlockPool``'s
+    block ids, addressed through per-slot block tables; the last page is a
+    write sink for padding lanes.
+  * One step per scheduling round executes the ENTIRE mixed batch -- decode
+    slots advance by 1 token, prefill slots by their scheduled chunk, idle
+    slots by 0 -- under bucketed chunk shapes, then samples and keeps the
+    sampled ids in a device-resident ``last_token`` tensor that the NEXT
+    round consumes directly.  The step is one Python call per round but,
+    run eagerly, many kernel launches (per layer: norm, projections, RoPE,
+    KV scatter, attention, output projection, FFN); ``bubble_ms`` records
+    the host gap before each dispatch.
+  * PIPELINED serving (``EngineConfig(pipelined=True)``, the default): the
+    host schedules round N+1 while the device runs round N; the sampled ids
+    come back through an async copy into a pinned buffer owned by the round
+    and are drained one round late.  Greedy outputs are identical to the
+    synchronous engine (``pipelined=False``).
+  * The scheduler under test is the real ``repro_torch.core`` code (a copy
+    of ``repro.core``); latencies are wall-clock.
+
+Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
+queue item): ``paged_kv=False``, ``kv_layout="fused"``,
+``preemption_mode="swap"`` and the swap hooks, ``nan_guard`` and the
+poison/scrub chaos hooks.
+"""
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.request import Request, RequestState
+from repro_torch.core.scheduler import ChunkedPrefillScheduler, ScheduledBatch
+from repro_torch.engine.costmodel import CostModel, CostModelConfig
+from repro_torch.engine.kv_cache import KVBlockPool, KVPoolConfig, PAGED_RESIDENT
+from repro_torch.engine.metrics import (
+    LatencyReport, MemoryReport, RobustnessReport, SLOReport, summarize,
+    summarize_memory, summarize_robustness, summarize_slo,
+)
+from repro_torch.engine.sampler import SamplerConfig, sample_tokens
+from repro_torch.models.model import Model, build_model
+from repro_torch.models.transformer import torch_dtype
+from repro_torch.robustness import FailoverStats, ReplicaHealth
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, queue 1, item {item})")
+
+
+@dataclass
+class EngineConfig:
+    n_slots: int = 16
+    max_context: int = 1024
+    chunk_buckets: Tuple[int, ...] = (1, 16, 32, 64, 128, 256)
+    # kept for config parity with the JAX engine: the port picks kernel or
+    # plain version by the tensors' device (CUDA: kernels), not by this flag
+    use_pallas: bool = False
+    paged_kv: bool = True             # False (dense slots) is not ported yet
+    kv_block_size: int = 16           # page size when the engine owns its pool
+    # accepted, no effect: the TPU meaning (pages DMA-gathered per tile,
+    # VMEM buffers per grid) does not carry over to the CUDA kernels
+    pages_per_tile: int = 1
+    kv_layout: str = "split"          # "fused" is not ported yet
+    buffering_depth: int = 1
+    pipelined: bool = True            # overlap schedule(N+1) with execute(N)
+    preemption_mode: str = "recompute"   # "swap" is not ported yet
+    nan_guard: bool = False              # True is not ported yet
+    sampler: SamplerConfig = field(default_factory=SamplerConfig)
+    seed: int = 0
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device; "cuda" without a usable card raises (no silent
+    CPU fallback: the caller asks for the CPU explicitly)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+class TokenReadback:
+    """The sampled ids of one dispatched round on their way to the host.
+
+    On a card: an async device->host copy into a pinned buffer owned by this
+    round (so a later round never overwrites it) and a CUDA event recorded
+    after it; ``is_ready()`` polls the event.  On the CPU the ids are already
+    host-side."""
+
+    def __init__(self, toks: torch.Tensor):
+        if toks.is_cuda:
+            self._host = torch.empty(toks.shape, dtype=toks.dtype,
+                                     pin_memory=True)
+            self._host.copy_(toks, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = toks
+            self._event = None
+
+    def is_ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+@dataclass
+class InflightRound:
+    """One dispatched-but-undrained round: the device is executing (or has
+    finished) it while the host schedules the next one.  ``toks`` is the
+    readback of the sampled ids; ``sampled`` names the (request, slot) pairs
+    whose token this round actually produced (decodes + prefill-completing
+    chunks).  ``out_index`` records, per request, which position of
+    ``output_tokens`` received this round's placeholder (filled by the serve
+    loop after ``on_batch_done``); ``drain`` patches the real ids there."""
+    toks: TokenReadback
+    sampled: List[Tuple[Request, int]]
+    t_dispatch: float
+    out_index: Dict[int, int] = field(default_factory=dict)
+    finished: List[Request] = field(default_factory=list)
+    prefill_ids: set = field(default_factory=set)   # this round's prefill reqs
+    # nan_guard is not ported: stays empty, ReplicaServer reads it
+    nonfinite: set = field(default_factory=set)
+    # the batch this round executed -- a crash unwind enumerates its members
+    batch: Optional[ScheduledBatch] = None
+
+
+class TorchEngine:
+    """Executes ScheduledBatches with real forward passes on ``device``."""
+
+    def __init__(self, model_cfg: ModelConfig, cfg: Optional[EngineConfig] = None,
+                 params=None, kv_pool: Optional[KVBlockPool] = None, *,
+                 device="cuda"):
+        self.cfg = cfg or EngineConfig()
+        if not self.cfg.paged_kv:
+            raise _not_ported("paged_kv=False (dense KV slots)", 9)
+        if self.cfg.kv_layout != "split":
+            raise _not_ported(f"kv_layout={self.cfg.kv_layout!r}", 6)
+        if self.cfg.preemption_mode != "recompute":
+            raise _not_ported(
+                f"preemption_mode={self.cfg.preemption_mode!r}", 5)
+        if self.cfg.nan_guard:
+            raise _not_ported("nan_guard=True", 8)
+        assert self.cfg.buffering_depth >= 1, self.cfg.buffering_depth
+        self.device = resolve_device(device)
+        self.model_cfg = model_cfg
+        self.model: Model = build_model(model_cfg)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+            params = self.model.init(gen, self.device)
+        self.params = params
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            self.cfg.seed + 1)
+
+        B = self.cfg.n_slots
+        self.slot_of: Dict[int, int] = {}          # req_id -> slot
+        self.free_slots = list(range(B - 1, -1, -1))
+
+        # device-idle gap before each dispatch (the host bubble the pipeline
+        # is built to close); fed by execute()/dispatch()
+        self.bubble_ms: List[float] = []
+        self._t_ready: Optional[float] = None
+        # host ms to stage and enqueue each round (the eager step launches
+        # every kernel of the round from Python)
+        self.enqueue_ms: List[float] = []
+        # nan_guard is not ported: never populated, read by ReplicaServer
+        self.last_nonfinite: set = set()
+        # rounds dispatched per chunk bucket (C == 1: pure-decode rounds)
+        self.bucket_rounds: Dict[int, int] = {}
+
+        self.kv_pool: Optional[KVBlockPool] = kv_pool
+        # warmup() flips this: binding a pool afterwards reallocates the page
+        # pool the warm-up ran against, so bind_kv_pool refuses
+        self.warmed = False
+        # the engine books blocks itself only while it owns a private pool;
+        # an externally bound pool is booked by the scheduler
+        self._owns_pool = False
+        if self.kv_pool is None:
+            bs = self.cfg.kv_block_size
+            per_slot = math.ceil(self.cfg.max_context / bs) + 1
+            self.kv_pool = KVBlockPool(KVPoolConfig(
+                n_blocks=B * per_slot, block_size=bs,
+            ))
+            self._owns_pool = True
+        self._build_state()
+
+    # -- physical KV layout ----------------------------------------------------
+    def _build_state(self) -> None:
+        cfg, model_cfg = self.cfg, self.model_cfg
+        B, S = cfg.n_slots, cfg.max_context
+        hd = model_cfg.resolved_head_dim
+        dt = torch_dtype(model_cfg.param_dtype)
+        dev = self.device
+        bs = self.kv_pool.cfg.block_size
+        # physical pages = pool blocks + 1 trailing sink page (padding lanes
+        # scatter there; block tables also pad with it)
+        self._n_phys = self.kv_pool.cfg.n_blocks + 1
+        self._sink = self.kv_pool.cfg.n_blocks
+        self.max_pages = math.ceil(S / bs) + 1
+        kv_shape = (model_cfg.n_layers, self._n_phys, bs,
+                    model_cfg.n_kv_heads, hd)
+        # device-resident block tables; _bt_host mirrors exactly what the
+        # device holds, _bt_len tracks per-slot entries already uploaded
+        self._bt_host = np.full((B, self.max_pages), self._sink, np.int32)
+        self._bt_len = np.zeros((B,), np.int32)
+        self._bt_dirty: set = set()
+        self.block_tables = self._upload(self._bt_host)
+        # drop the old pool before allocating the new one (a rebind at full
+        # width would otherwise hold two ~1.6 GB pools per tensor at once)
+        self.cache = None
+        self.cache = {"k": torch.zeros(kv_shape, dtype=dt, device=dev),
+                      "v": torch.zeros(kv_shape, dtype=dt, device=dev)}
+        self.lens = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.last_token = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Host numpy -> a NEW device tensor.  On a card the bytes go through
+        a fresh pinned buffer from PyTorch's caching host allocator, which
+        does not hand that buffer out again until the copy has completed --
+        so the caller may mutate ``arr`` at once and the copy never waits
+        for the stream (a pageable blocking copy would sync the stream and
+        serialise the pipelined loop)."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return src.clone()
+        pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        pinned.copy_(src)
+        return pinned.to(self.device, non_blocking=True)
+
+    def _step(self, tokens, chunk_lens, use_last, sample_mask):
+        """Forward + sampling + length update + device token feedback for one
+        round, all enqueued on the device without a host sync.  The cache,
+        ``lens`` and ``last_token`` are updated in place (the JAX engine
+        donated those buffers to its jitted step)."""
+        # decode lanes consume the device-resident last sampled token (the
+        # host staged a 0 there -- it may not know the id yet)
+        tokens[:, 0] = torch.where(use_last, self.last_token, tokens[:, 0])
+        logits = self.model.impl.chunked_step_paged(
+            self.params, tokens, self.cache, self.lens, chunk_lens,
+            self.block_tables, pages_per_tile=self.cfg.pages_per_tile,
+            kv_layout=self.cfg.kv_layout,
+            buffering_depth=self.cfg.buffering_depth,
+        )
+        toks = sample_tokens(logits, self._gen, self.cfg.sampler)
+        self.last_token.copy_(torch.where(sample_mask, toks, self.last_token))
+        self.lens.add_(chunk_lens)
+        return toks
+
+    def bind_kv_pool(self, kv_pool: Optional[KVBlockPool]) -> None:
+        """Adopt the serve loop's shared pool: the physical page array is
+        rebuilt so page ids == the pool's block ids (the scheduler books
+        blocks; the engine just follows the tables).  Must happen before any
+        request is in flight."""
+        if kv_pool is None or kv_pool is self.kv_pool:
+            return
+        assert not self.slot_of, "cannot rebind the KV pool mid-flight"
+        if self.warmed:
+            raise RuntimeError(
+                "bind_kv_pool after warmup(): the rebuild reallocates the page "
+                "pool the warm-up ran against -- bind the external pool "
+                "FIRST, then call warmup()"
+            )
+        self.kv_pool = kv_pool
+        self._owns_pool = False
+        self._build_state()
+
+    def warmup(self, *, include_swap: Optional[bool] = None) -> None:
+        """Run every chunk bucket once so serving rounds see steady-state
+        latencies: the first round of each shape builds the CUDA kernels
+        (nvcc, at first use), loads cuBLAS and settles the caching
+        allocator.  The dummy rounds write only into the sink page, which is
+        never read back, and ``lens`` is reset afterwards."""
+        if include_swap:
+            raise _not_ported("swap warm-up (KV export/import)", 5)
+        B = self.cfg.n_slots
+        off = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        chunk_lens = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        chunk_lens[0] = 1
+        for C in self.cfg.chunk_buckets:
+            tokens = torch.ones((B, C), dtype=torch.int32, device=self.device)
+            self._step(tokens, chunk_lens, off, off)
+        self.lens.zero_()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.warmed = True
+
+    # -- slot management -------------------------------------------------------
+    def acquire_slot(self, req: Request) -> bool:
+        """Late slot binding: called by the scheduler when it first commits a
+        chunk for ``req``.  Returns True when the request holds a slot after
+        the call.  The prefix-cache lookup happens HERE, not at admission;
+        the paged layout's matched pages are already resident (zero-copy)."""
+        if req.req_id in self.slot_of:
+            return True
+        if not self.free_slots:
+            return False
+        slot = self.free_slots.pop()
+        self.slot_of[req.req_id] = slot
+        if (self.kv_pool is not None and req.prefill_done == 0
+                and not self.kv_pool.tables.get(req.req_id)):
+            matched = self.kv_pool.match_prefix(req.req_id, require_payload=True)
+            if matched > 0:
+                req.prefill_done = matched
+        # a scalar fill enqueued on the stream, ordered after any round
+        # still running there (no host sync)
+        self.lens[slot] = req.prefill_done
+        self._bt_host[slot, :] = self._sink
+        self._bt_len[slot] = 0
+        self._bt_dirty.add(slot)
+        return True
+
+    def release(self, req: Request) -> None:
+        """Drop the request's slot (finish or preemption).  Idempotent.  With
+        an engine-owned pool the request's blocks go back too."""
+        slot = self.slot_of.pop(req.req_id, None)
+        if slot is not None:
+            self.free_slots.append(slot)
+            self._bt_host[slot, :] = self._sink
+            self._bt_len[slot] = 0
+            self._bt_dirty.add(slot)
+        if self._owns_pool:
+            self.kv_pool.release(req.req_id)
+
+    def has_capacity(self) -> bool:
+        return len(self.free_slots) > 0
+
+    # -- swap preemption and chaos hooks: not in this slice --------------------
+    def swap_out(self, req: Request) -> None:
+        raise _not_ported("swap preemption (swap_out)", 5)
+
+    def swap_in(self, req: Request, payload) -> None:
+        raise _not_ported("swap preemption (swap_in)", 5)
+
+    def swap_in_tail(self, req: Request, payload, tail_start_blocks: int) -> None:
+        raise _not_ported("swap preemption (swap_in_tail)", 5)
+
+    @staticmethod
+    def slice_swap_payload(payload, tail_start_blocks: int, n_blocks: int):
+        raise _not_ported("swap preemption (slice_swap_payload)", 5)
+
+    def has_pending_swaps(self) -> bool:
+        return False
+
+    def finalize_swaps(self) -> None:
+        """No swap copies exist in this slice: nothing to land."""
+
+    def poison_kv(self, req: Request) -> None:
+        raise _not_ported("the nan_logits chaos hook (poison_kv)", 8)
+
+    def scrub_poisoned(self) -> None:
+        raise _not_ported("the nan_logits chaos hook (scrub_poisoned)", 8)
+
+    # -- prefix-cache payloads -------------------------------------------------
+    def capture_sealed(self, req: Request) -> None:
+        """Make newly sealed (full, content-addressed) prompt blocks
+        restorable by future prefix hits: the data already lives at the
+        block's physical page, so a residency marker suffices."""
+        kv_pool = self.kv_pool
+        if kv_pool is None:
+            return
+        for _idx, bid, _s, _e in kv_pool.take_newly_sealed(req.req_id):
+            kv_pool.store_payload(bid, PAGED_RESIDENT)
+
+    # -- one round ---------------------------------------------------------------
+    def _bucket(self, c: int) -> int:
+        for b in self.cfg.chunk_buckets:
+            if c <= b:
+                return b
+        return self.cfg.chunk_buckets[-1]
+
+    def _sync_block_tables(self, batch: ScheduledBatch) -> None:
+        """Refresh scheduled requests' block-table rows from the pool with
+        DIRTY-SLOT granularity: per-request tables only ever APPEND between
+        binds, so the host mirror changes only when a row crossed a page,
+        was bound or was released.  When any row changed, the whole (B,
+        max_pages) table goes up in one small copy."""
+        pool = self.kv_pool
+        if self._owns_pool:
+            for r, c in batch.prefill_chunks:
+                pool.allocate(r.req_id, int(c))
+            for r in batch.decode_reqs:
+                pool.allocate(r.req_id, 1)
+        for r in batch.decode_reqs + [q for q, _ in batch.prefill_chunks]:
+            slot = self.slot_of[r.req_id]
+            table = pool.tables.get(r.req_id, [])
+            n = len(table)
+            assert n <= self.max_pages, (
+                f"req {r.req_id}: {n} blocks > {self.max_pages} pages"
+            )
+            seen = int(self._bt_len[slot])
+            if slot in self._bt_dirty:
+                self._bt_host[slot, :n] = table
+                self._bt_host[slot, n:] = self._sink
+            elif n > seen:
+                self._bt_host[slot, seen:n] = table[seen:]
+                self._bt_dirty.add(slot)
+            self._bt_len[slot] = n
+        if self._bt_dirty:
+            self.block_tables = self._upload(self._bt_host)
+            self._bt_dirty.clear()
+
+    def _stage(self, batch: ScheduledBatch):
+        """Host-side staging for one round: token ids, per-slot chunk
+        lengths, and the two masks the step needs: which slots consume the
+        device-resident ``last_token`` (decodes) and which slots' sampled
+        token is meaningful this round (decodes + chunks that finish their
+        prefill)."""
+        B = self.cfg.n_slots
+        max_chunk = max(
+            [c for _, c in batch.prefill_chunks] + [1 if batch.decode_reqs else 0]
+        )
+        C = self._bucket(max_chunk)
+        tokens = np.zeros((B, C), np.int32)
+        chunk_lens = np.zeros((B,), np.int32)
+        use_last = np.zeros((B,), np.bool_)
+        sample_mask = np.zeros((B,), np.bool_)
+        sampled: List[Tuple[Request, int]] = []
+
+        for req in batch.decode_reqs:
+            slot = self.slot_of[req.req_id]
+            chunk_lens[slot] = 1
+            if req.needs_replay:
+                # first decode round after a restore: stage the last
+                # delivered id from the host
+                tokens[slot, 0] = req.output_tokens[-1]
+                req.needs_replay = False
+            else:
+                use_last[slot] = True
+            sample_mask[slot] = True
+            sampled.append((req, slot))
+        for req, c in batch.prefill_chunks:
+            slot = self.slot_of[req.req_id]
+            chunk = req.prompt_tokens[req.prefill_done : req.prefill_done + c]
+            tokens[slot, : len(chunk)] = chunk
+            chunk_lens[slot] = len(chunk)
+            if req.remaining_prefill - c <= 0:  # prefill completes this round
+                sample_mask[slot] = True
+                sampled.append((req, slot))
+        return tokens, chunk_lens, use_last, sample_mask, sampled
+
+    def dispatch(self, batch: ScheduledBatch) -> InflightRound:
+        """Stage and launch one round WITHOUT waiting for it: the step
+        (forward + sampling + length update) is enqueued while the caller
+        goes back to scheduling.  The sampled-token readback starts as an
+        async device->host copy; ``drain`` collects it one round later."""
+        tokens, chunk_lens, use_last, sample_mask, sampled = self._stage(batch)
+        B, C = tokens.shape
+        self._sync_block_tables(batch)
+        # one upload for the round's four small arrays, into a buffer of its
+        # own (the numpy arrays are fresh each round, the device copy too)
+        packed = self._upload(np.concatenate([
+            tokens.reshape(-1), chunk_lens,
+            use_last.astype(np.int32), sample_mask.astype(np.int32)]))
+        d_tokens = packed[: B * C].view(B, C)
+        d_chunk_lens = packed[B * C: B * C + B]
+        d_use_last = packed[B * C + B: B * C + 2 * B].bool()
+        d_sample_mask = packed[B * C + 2 * B:].bool()
+        t_dispatch = time.perf_counter()
+        if self._t_ready is not None:
+            self.bubble_ms.append((t_dispatch - self._t_ready) * 1e3)
+        toks = TokenReadback(
+            self._step(d_tokens, d_chunk_lens, d_use_last, d_sample_mask))
+        self.enqueue_ms.append((time.perf_counter() - t_dispatch) * 1e3)
+        self.bucket_rounds[C] = self.bucket_rounds.get(C, 0) + 1
+        return InflightRound(toks=toks, sampled=sampled, t_dispatch=t_dispatch)
+
+    def drain(self, inflight: InflightRound) -> float:
+        """Block until the round's sampled ids are host-side, then patch the
+        REAL token values into the requests' bookkeeping (placeholders were
+        recorded by ``on_batch_done`` while the round executed): delivered
+        outputs, ``next_token``, and -- via ``patch_token`` -- any copy a
+        preemption already folded into a recompute prompt.  Returns
+        dispatch->drain wall ms (device time plus whatever host work it
+        overlapped)."""
+        toks = inflight.toks.numpy()
+        self._t_ready = time.perf_counter()
+        wall_ms = (self._t_ready - inflight.t_dispatch) * 1e3
+        self.last_nonfinite = inflight.nonfinite
+        for req, slot in inflight.sampled:
+            tok = int(toks[slot])
+            req.next_token = tok
+            idx = inflight.out_index.get(req.req_id)
+            if idx is not None:
+                req.patch_token(idx, tok)
+        return wall_ms
+
+    def execute(self, batch: ScheduledBatch) -> float:
+        """Synchronous round (``pipelined=False`` A/B path): dispatch and
+        drain back-to-back; returns wall latency in ms."""
+        return self.drain(self.dispatch(batch))
+
+
+@dataclass
+class ServeResult:
+    report: LatencyReport
+    requests: List[Request]
+    rounds: int
+    wall_s: float
+    samples: Optional[Tuple[np.ndarray, np.ndarray]] = None
+    outputs: Optional[Dict[int, List[int]]] = None
+    memory: Optional[MemoryReport] = None     # KV pool lifecycle summary
+    host_bubble_ms: Optional[List[float]] = None   # device-idle gap per round
+    slo: Optional[SLOReport] = None           # per-tenant attainment gauges
+    robustness: Optional["RobustnessReport"] = None  # chaos/fault summary
+
+
+def compress_idle_gap(pending: List[Request], next_i: int, now: float) -> None:
+    """Jump the idle gap to the next arrival by shifting ALL future arrivals
+    by the same constant, so inter-arrival gaps — and therefore arrival-order
+    and aging behavior — are preserved mid-run."""
+    offset = now - pending[next_i].arrival_time
+    for j in range(next_i, len(pending)):
+        pending[j].arrival_time += offset
+
+
+class ReplicaServer:
+    """One replica's continuous-batching state machine: the body of
+    ``serve()`` factored into admit/step/drain pieces so a multi-replica
+    driver (``repro.disagg.DisaggregatedRouter``) can interleave several
+    engines — each with its own scheduler and pool — inside one host loop,
+    while single-replica ``serve()`` stays a thin wrapper.
+
+    ``step(now)`` runs at most one scheduling round and reports what
+    happened:
+      * ``"round"``     — a batch was dispatched (pipelined) or executed
+      * ``"drained"``   — progress was made by draining the in-flight round
+      * ``"finalized"`` — pending swap-out copies were landed (no round ran)
+      * ``"starved"``   — runnable work exists but nothing could be placed
+      * ``"idle"``      — no queued or in-flight work at all
+
+    Value-dependent stop tokens (``Request.stop_token``) are honored here,
+    not in ``receive_token``: a pipelined engine learns token VALUES one
+    round late, so the stop is applied at drain time — by which point the
+    request may already be booked into the next, not-yet-dispatched round
+    (unwound via ``scheduler.on_stop``, which also refunds the
+    over-scheduled round's KV booking), preempted, or mid-handoff.  Greedy
+    outputs stay bit-identical to the synchronous engine, which observes the
+    same stop in the same round's ``on_batch_done``.
+    """
+
+    def __init__(
+        self,
+        scheduler: ChunkedPrefillScheduler,
+        engine: TorchEngine,
+        *,
+        kv_pool: Optional[KVBlockPool] = None,
+        collect_samples: bool = False,
+        on_prefill_complete=None,
+        on_stopped=None,
+        name: str = "replica",
+    ):
+        self.sched = scheduler
+        self.engine = engine
+        self.kv_pool = kv_pool
+        self.collect_samples = collect_samples
+        # multi-replica hook: called once per request in the round its
+        # prefill completed (state DECODING, first token bookkept) — the
+        # disaggregated router decides there whether to export the KV
+        self.on_prefill_complete = on_prefill_complete
+        # multi-replica hook: called after a value-dependent stop is applied
+        # (scheduler.on_stop already ran) — the router chases a prefetched
+        # handoff record to whatever pool it moved on to and unwinds it there
+        self.on_stopped = on_stopped
+        self.name = name
+        self.pipelined = engine.cfg.pipelined
+        self.inflight: Optional[InflightRound] = None
+        self.rounds = 0
+        self.outputs: Dict[int, List[int]] = {}
+        # fault tolerance (repro.robustness): an attached injector fires
+        # seeded chaos sites inside step(); fault_tolerant converts any
+        # exception out of a round into a crash unwind + "error" status
+        # instead of tearing down the serve loop
+        self.injector = None
+        self.fault_tolerant = False
+        self.last_error: Optional[BaseException] = None
+        self.crash_unwinds = 0
+        self.crash_requeued = 0
+        # local retry bound: a request requeued by _crash_cleanup more than
+        # max_crash_retries times sheds terminally instead of cycling — on a
+        # single replica there is no fleet to fail over to, and a repeating
+        # crash site must not livelock the serve loop (None = unbounded)
+        self.max_crash_retries: Optional[int] = None
+        self._crash_retries: Dict[int, int] = {}
+        self.crash_shed: List[Request] = []
+        self.quarantined: List[Request] = []
+        # torn-round bookkeeping for _crash_cleanup: the round being drained
+        # (popped off self.inflight but not yet patched/delivered) and the
+        # batch scheduled-but-not-yet-retired by on_batch_done
+        self._draining: Optional[InflightRound] = None
+        self._pending_batch: Optional[ScheduledBatch] = None
+        self.feats: List[np.ndarray] = []
+        self.lats: List[float] = []
+        self.t_start = time.perf_counter()
+
+        if kv_pool is not None:
+            if scheduler.kv_pool is None:
+                # the scheduler books blocks chunk-granularly inside schedule()
+                scheduler.attach_kv_pool(kv_pool)
+            engine.bind_kv_pool(kv_pool)
+        # slots bind at first schedule and free at preemption, not admission
+        scheduler.attach_slot_binder(engine.acquire_slot, releaser=engine.release)
+        if scheduler.kv_pool is not None and scheduler.kv_booking:
+            # preemption mode comes from the ENGINE config (it owns the
+            # physical swap path); the deterministic cost model prices swap
+            # bytes vs recompute FLOPs per victim
+            scheduler.attach_swap(
+                engine.swap_out, engine.swap_in,
+                cost_model=CostModel(CostModelConfig(noise_std=0.0)),
+                mode=engine.cfg.preemption_mode,
+                restorer_tail=engine.swap_in_tail,
+                payload_slicer=engine.slice_swap_payload,
+            )
+        # bubble accounting is per-serve: drop any history (and the
+        # ready-stamp of a previous serve, which would read as one giant
+        # inter-serve bubble)
+        engine.bubble_ms = []
+        engine._t_ready = None
+
+    # -- clock ----------------------------------------------------------------
+    def start(self, t_start: float) -> None:
+        """Anchor this replica's clock (a multi-replica driver shares one)."""
+        self.t_start = t_start
+
+    def _now(self) -> float:
+        return time.perf_counter() - self.t_start
+
+    # -- intake ---------------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        """Admit one request: pool registration (tenant + prompt hashes
+        only — the prefix-cache MATCH waits for first slot bind, so a parked
+        backlog pins no cached blocks and no tenant quota) plus scheduler
+        submission."""
+        if self.kv_pool is not None:
+            self.kv_pool.register_request(
+                req.req_id, tenant=req.tenant,
+                prompt_tokens=req.prompt_tokens, prompt_len=req.prompt_len,
+            )
+        if not self.sched.submit(req):         # admission-rejected: give back
+            if self.kv_pool is not None:
+                self.kv_pool.release(req.req_id)
+
+    def adopt_handoff(self, req: Request, rec, reg) -> None:
+        """Decode-pool side of a cross-replica handoff: land the exported
+        staging record in this replica's pool and enqueue the request.  The
+        ordinary swap-restore path inside ``schedule()`` then binds a slot,
+        re-charges the tenant's quota, scatters the payload, and resumes the
+        request decode-only (``needs_replay`` stages its last delivered
+        token) — no prefill chunk is ever scheduled for it here."""
+        self.kv_pool.import_swap(req.req_id, rec, reg)
+        self.sched.submit_handoff(req)
+
+    # -- introspection ---------------------------------------------------------
+    def has_work(self) -> bool:
+        return self.sched.has_work()
+
+    def has_inflight(self) -> bool:
+        return self.inflight is not None
+
+    def busy(self) -> bool:
+        return (self.sched.has_work() or self.inflight is not None
+                or self.engine.has_pending_swaps())
+
+    def outstanding_work(self) -> int:
+        """Tokens of runnable work currently on this replica (prefill left +
+        decode left over queued/decoding requests) — the router's load key."""
+        total = 0
+        for r in self.sched.queue.requests():
+            total += r.remaining_prefill + (r.max_new_tokens - r.generated)
+        for r in self.sched._decoding.values():
+            total += r.remaining_prefill + (r.max_new_tokens - r.generated)
+        return total
+
+    def tenant_outstanding(self, tenant: str) -> int:
+        total = 0
+        for r in list(self.sched.queue.requests()) + list(
+                self.sched._decoding.values()):
+            if r.tenant == tenant:
+                total += r.remaining_prefill + (r.max_new_tokens - r.generated)
+        return total
+
+    # -- one scheduling round --------------------------------------------------
+    def step(self, now: float) -> str:
+        """Run one round, optionally under the fault boundary: chaos sites
+        fire here and — when ``fault_tolerant`` — any exception out of the
+        round (injected or real) is converted into a crash unwind plus an
+        ``"error"`` status the health machinery consumes, instead of tearing
+        down the whole serve loop.  ``NotImplementedError`` (a path the port
+        does not have yet) always reaches the caller."""
+        if self.injector is None and not self.fault_tolerant:
+            return self._step_impl(now)
+        try:
+            inj = self.injector
+            if inj is not None:
+                spec = inj.fire("slow_round_ms", replica=self.name)
+                if spec is not None:
+                    time.sleep(max(spec.value, 0.0) / 1e3)
+                inj.maybe_raise("replica_step_crash", replica=self.name)
+            return self._step_impl(now)
+        except NotImplementedError:
+            # a path this port does not have is refused, never survived
+            raise
+        except Exception as e:  # noqa: BLE001 — the replica fault boundary
+            if not self.fault_tolerant:
+                raise
+            self.last_error = e
+            self._crash_cleanup()
+            return "error"
+
+    def _step_impl(self, now: float) -> str:
+        sched, engine = self.sched, self.engine
+        drained_eagerly = False
+        if self.inflight is not None and self.inflight.toks.is_ready():
+            # device already finished: drain before (not after) the next
+            # schedule — tokens/timestamps stamp at true readiness and the
+            # bubble metric doesn't hide idle time behind the overlap
+            self._drain_inflight()
+            drained_eagerly = True
+        if not sched.has_work():
+            if self.inflight is not None:
+                self._drain_inflight()
+                return "drained"
+            if engine.has_pending_swaps():
+                # an exported (handoff) request's gather can be the only
+                # pending work on this replica — land it so the router can
+                # move the staged record on
+                engine.finalize_swaps()
+                return "finalized"
+            # an eager drain above counts as progress — it may have just
+            # finalized an exported gather the router is waiting on, so
+            # "idle" (a quiesce signal) would be premature this step
+            return "drained" if drained_eagerly else "idle"
+
+        # preemption victims' slots were already freed inside schedule() (the
+        # releaser hook) — a victim may even have re-bound a fresh slot and
+        # been rescheduled within the same round, so do NOT release here.
+        # In pipelined mode this schedule overlaps the in-flight round.
+        batch = sched.schedule(now)
+        if batch.is_empty():
+            if self.inflight is not None:
+                self._drain_inflight()
+                return "drained"
+            if engine.has_pending_swaps():
+                # nothing in flight to piggyback the staging drain on (e.g.
+                # every runnable request is a SWAPPING victim): finalize now
+                # so the next schedule() round can restore them
+                engine.finalize_swaps()
+                return "finalized"
+            return "drained" if drained_eagerly else "starved"
+
+        # the batch is booked and counted but not yet retired: a crash
+        # anywhere before on_batch_done must strip it back out of the stats
+        self._pending_batch = batch
+        if self.injector is not None:
+            for r in batch.decode_reqs:
+                if self.injector.fire("nan_logits", replica=self.name,
+                                      req_id=r.req_id) is not None:
+                    engine.poison_kv(r)
+
+        if self.pipelined:
+            if self.inflight is not None:
+                # round N-1's ids land BEFORE round N+1 stages anything that
+                # could embed them (a preemption fold re-prefills delivered
+                # tokens) — this is the pipeline's one-round visibility lag.
+                # The just-scheduled batch rides along so a late stop can be
+                # unwound from it before it dispatches.
+                self._drain_inflight(pending_batch=batch)
+            self.inflight = engine.dispatch(batch)
+            self.inflight.batch = batch
+            wall_ms = None
+        else:
+            wall_ms = engine.execute(batch)
+        if self.kv_pool is not None:
+            # newly sealed (full, hashed) prompt blocks become restorable
+            for r, _c in batch.prefill_chunks:
+                engine.capture_sealed(r)
+        if self.collect_samples:
+            self.feats.append(batch.state.features())
+            if wall_ms is not None:
+                self.lats.append(wall_ms)
+        self.rounds += 1
+
+        now2 = self._now()
+        sched.on_batch_done(batch, now2)       # releases finished KV refs
+        self._pending_batch = None             # retired: charged and counted
+
+        # sync-mode numerics quarantine: execute() drained inside the round,
+        # so the finite mask is already host-visible.  Roll back the poisoned
+        # token (its charge refunds), shed terminally, deliver the clean
+        # prefix.  Pipelined mode does the same one round late, at drain.
+        if not self.pipelined and engine.last_nonfinite:
+            prefill_ids = {q.req_id for q, _ in batch.prefill_chunks}
+            for r in batch.decode_reqs + [q for q, _ in batch.prefill_chunks]:
+                if r.req_id not in engine.last_nonfinite:
+                    continue
+                if r.rollback_undrained(1):
+                    sched.refund_rolled_back(
+                        r, first_token=r.req_id in prefill_ids)
+                sched.shed_request(r, reason="numerics")
+                self.outputs[r.req_id] = list(r.output_tokens)
+                self.quarantined.append(r)
+                if self.on_stopped is not None:
+                    self.on_stopped(self, r)
+            engine.scrub_poisoned()
+
+        if self.pipelined:
+            # the placeholder each sampled request just received sits at the
+            # tail of its output_tokens; drain() patches the real id there
+            for req, _slot in self.inflight.sampled:
+                self.inflight.out_index[req.req_id] = len(req.output_tokens) - 1
+            # sampled ∩ prefill = chunks that completed their prefill this
+            # round: their prefill_end_time re-stamps at drain
+            self.inflight.prefill_ids = {r.req_id for r, _ in batch.prefill_chunks}
+
+        for r in batch.decode_reqs + [q for q, _ in batch.prefill_chunks]:
+            self.outputs.setdefault(r.req_id, [])
+            if r.state == RequestState.FINISHED:
+                if self.pipelined:
+                    self.inflight.finished.append(r)
+                else:
+                    self.outputs[r.req_id] = list(r.output_tokens)
+                engine.release(r)
+
+        if not self.pipelined:
+            # synchronous engine: token values are already real (execute()
+            # drains internally), so stops and per-token timestamps apply in
+            # the same round
+            for r in batch.decode_reqs + [q for q, _ in batch.prefill_chunks]:
+                if r.req_id in engine.last_nonfinite:
+                    continue       # quarantined above: its token rolled back
+                if r.remaining_prefill == 0 and r.output_tokens:
+                    r.token_times.append(now2)
+                if (r.stop_token is not None
+                        and r.state == RequestState.DECODING
+                        and r.output_tokens
+                        and r.output_tokens[-1] == r.stop_token):
+                    r.finish_stopped(now2)
+                    self.outputs[r.req_id] = list(r.output_tokens)
+                    sched.on_stop(r)
+                    if self.on_stopped is not None:
+                        self.on_stopped(self, r)
+
+        if self.on_prefill_complete is not None:
+            for r, _c in batch.prefill_chunks:
+                if r.state == RequestState.DECODING and r.remaining_prefill == 0:
+                    self.on_prefill_complete(self, r)
+        return "round"
+
+    # -- drain -----------------------------------------------------------------
+    def _drain_inflight(self, pending_batch: Optional[ScheduledBatch] = None) -> None:
+        inflight, self.inflight = self.inflight, None
+        # visible to _crash_cleanup until this round is fully delivered: a
+        # crash inside drain/stop processing must unwind it, not strand it
+        self._draining = inflight
+        wall_ms = self.engine.drain(inflight)
+        if self.collect_samples:
+            self.lats.append(wall_ms)
+        # timestamps recorded against the placeholder `now` are re-stamped to
+        # the moment the ids actually became host-visible — the earliest a
+        # client could receive them — so pipelined LatencyReports are not
+        # systematically understated vs the synchronous engine's
+        now_v = self._now()
+        # numerics quarantine FIRST: a request whose sampled logits were
+        # non-finite must not stamp, deliver, or stop on the garbage id.  The
+        # poisoned placeholder rolls back (charge refunded), the request
+        # sheds terminally, and its clean delivered prefix is the output.
+        for req, _slot in inflight.sampled:
+            if req.req_id not in inflight.nonfinite:
+                continue
+            if req in inflight.finished:
+                inflight.finished.remove(req)
+            if req.rollback_undrained(1):
+                self.sched.refund_rolled_back(
+                    req, first_token=req.req_id in inflight.prefill_ids)
+            self.sched.shed_request(
+                req, reason="numerics", batch=pending_batch)
+            self.outputs[req.req_id] = list(req.output_tokens)
+            self.quarantined.append(req)
+            if self.on_stopped is not None:
+                self.on_stopped(self, req)
+        if inflight.nonfinite:
+            self.engine.scrub_poisoned()
+        for req, _slot in inflight.sampled:
+            if req.req_id in inflight.nonfinite:
+                continue
+            if inflight.out_index.get(req.req_id) == 0:
+                req.first_token_time = now_v
+            if req.req_id in inflight.prefill_ids:
+                req.prefill_end_time = now_v
+            req.token_times.append(now_v)
+        for r in inflight.finished:
+            r.finish_time = now_v
+            # patched ids are final only now — deliver them
+            self.outputs[r.req_id] = list(r.output_tokens)
+        # value-dependent stops, one round late: only now are the sampled ids
+        # real.  A stopping request may meanwhile have been booked into the
+        # next round (pending_batch — scheduled but not yet dispatched),
+        # preempted to the queue, swap-staged, or exported for a handoff;
+        # on_stop unwinds each of those (the over-scheduled round's KV
+        # booking is refunded with the release).
+        for req, _slot in inflight.sampled:
+            if req.stop_token is None or req.state == RequestState.FINISHED:
+                continue
+            idx = inflight.out_index.get(req.req_id)
+            if idx is None or req.output_tokens[idx] != req.stop_token:
+                continue
+            req.finish_stopped(now_v)
+            self.outputs[req.req_id] = list(req.output_tokens)
+            self.sched.on_stop(req, pending_batch)
+            if self.on_stopped is not None:
+                self.on_stopped(self, req)
+        self._draining = None
+
+    # -- crash unwind ----------------------------------------------------------
+    def _crash_cleanup(self) -> None:
+        """A step crashed somewhere between scheduling and delivery: unwind
+        the torn round(s) so this replica (or, after failover, its
+        survivors) can carry on without leaking slots, KV blocks, or phantom
+        VTC charges.
+
+        Up to three torn artifacts can exist:
+          * ``_draining``      — a round popped by ``_drain_inflight`` that
+                                 crashed before its tokens were delivered,
+          * ``self.inflight``  — a round dispatched but never drained,
+          * ``_pending_batch`` — a batch scheduled (KV booked, stats counted)
+                                 whose ``on_batch_done`` never ran.
+
+        Undrained placeholder tokens roll back and their charge refunds (the
+        values never became host-visible; greedy recompute regenerates them
+        bit-identically).  Every involved live request is then evicted from
+        the scheduler, folded via ``preempt()`` (at-most-once delivery), and
+        re-queued locally.  Already-delivered requests are left alone."""
+        torn: List[InflightRound] = []
+        if self._draining is not None:
+            torn.append(self._draining)
+            self._draining = None
+        if self.inflight is not None:
+            torn.append(self.inflight)
+            self.inflight = None
+        pending = self._pending_batch
+        self._pending_batch = None
+
+        victims: Dict[int, Request] = {}
+        for infl in torn:
+            for req, _slot in infl.sampled:
+                victims[req.req_id] = req
+            for req in infl.finished:
+                victims[req.req_id] = req
+            if infl.batch is not None:
+                for req in infl.batch.decode_reqs:
+                    victims[req.req_id] = req
+                for req, _c in infl.batch.prefill_chunks:
+                    victims[req.req_id] = req
+        if pending is not None:
+            for req in pending.decode_reqs:
+                victims[req.req_id] = req
+            for req, _c in pending.prefill_chunks:
+                victims[req.req_id] = req
+
+        for infl in torn:
+            for req, _slot in infl.sampled:
+                if infl.out_index.get(req.req_id) is None:
+                    continue   # crash hit before the placeholder bookkeeping
+                if (req.state == RequestState.FINISHED
+                        and self.outputs.get(req.req_id)):
+                    continue   # fully delivered before the crash: irrevocable
+                if req.rollback_undrained(1):
+                    self.sched.refund_rolled_back(
+                        req, first_token=req.req_id in infl.prefill_ids)
+
+        for req in victims.values():
+            if req.state == RequestState.FINISHED:
+                continue       # delivered, stopped, or shed before the crash
+            if (self.kv_pool is not None
+                    and req.req_id not in self.kv_pool._reg
+                    and self.kv_pool.swap_state(req.req_id) is None
+                    and not self.kv_pool.tables.get(req.req_id)):
+                # no longer owned here: the round that tore also completed
+                # this request's prefill and the router exported its handoff
+                # (export_swap popped the registration) before the crash.
+                # Its placeholder rolled back above; the handoff pipeline (or
+                # the router's failover retraction, if this replica is dying)
+                # owns its fate now.
+                continue
+            k = self._crash_retries.get(req.req_id, 0) + 1
+            self._crash_retries[req.req_id] = k
+            if (self.max_crash_retries is not None
+                    and k > self.max_crash_retries):
+                self.sched.shed_request(
+                    req, reason="replica_failure", batch=pending)
+                self.outputs[req.req_id] = list(req.output_tokens)
+                self.crash_shed.append(req)
+                continue
+            self.sched.evict_request(req, pending)
+            req.preempt()
+            if self.kv_pool is not None:
+                self.kv_pool.register_request(
+                    req.req_id, tenant=req.tenant,
+                    prompt_tokens=req.prompt_tokens,
+                    prompt_len=req.prompt_len,
+                )
+            self.sched.requeue_failed(req)
+            self.crash_requeued += 1
+        self.crash_unwinds += 1
+
+    def finish(self) -> None:
+        """End-of-serve cleanup: drain the last round and land any pending
+        swap copies (no staging entry is left mid-flight at exit)."""
+        if self.inflight is not None:
+            self._drain_inflight()
+        self.engine.finalize_swaps()
+
+
+def serve(
+    requests: List[Request],
+    scheduler: ChunkedPrefillScheduler,
+    engine: TorchEngine,
+    *,
+    kv_pool: Optional[KVBlockPool] = None,
+    collect_samples: bool = False,
+    realtime_arrivals: bool = False,
+    max_rounds: int = 200_000,
+    robustness=None,
+) -> ServeResult:
+    """Continuous-batching serve loop over real execution.
+
+    Admission hands requests straight to the scheduler — an engine slot is
+    bound only when the scheduler first commits a chunk (late binding, via
+    the slot-binder hook), so queued or admission-delayed backlog can never
+    pin slots.
+
+    With ``EngineConfig(pipelined=True)`` (default) the loop runs as a
+    two-stage pipeline: while the device executes round N, the host runs
+    admission + ``schedule()`` (aging, VTC, KV booking, preemption) for
+    round N+1 and drains round N's sampled ids as an async copy — round N's
+    token VALUES become host-visible one round late, which is fine because
+    round bookkeeping (chunk deliveries, length-capped termination) is
+    value-independent and the values themselves are only needed for
+    delivered outputs, stop-token termination, and preemption folds, all
+    patched/applied at drain time before anything is staged from them.
+    ``collect_samples`` latencies in pipelined mode are dispatch->drain
+    walls (device time plus overlapped host work).
+
+    The loop body lives in ``ReplicaServer`` (one replica's admit/step/drain
+    state machine); this wrapper owns only arrival admission and idle-gap
+    handling.  realtime_arrivals=False (default) admits requests by the
+    engine's own clock (wall time since start), compressing idle gaps —
+    deterministic and fast for tests; True sleeps to honor arrival times.
+    """
+    pending = sorted(requests, key=lambda r: r.arrival_time)
+    for r in pending:
+        assert r.prompt_tokens is not None, "attach_prompt_tokens() first"
+    server = ReplicaServer(
+        scheduler, engine, kv_pool=kv_pool, collect_samples=collect_samples,
+    )
+    if robustness is not None:
+        # colocated fault tolerance: crash unwinds + NaN quarantine survive
+        # in-place (there is no second replica to fail over to — replica
+        # death/failover lives in the disaggregated router)
+        server.fault_tolerant = True
+        server.injector = robustness.make_injector()
+        server.max_crash_retries = robustness.max_retries
+    # the same health machine the fleet router runs, over the lone replica:
+    # a persistent fault (a repeat-crash site, a wedged device) must not
+    # spin the serve loop forever — once DEAD, remaining work sheds
+    # terminally (exactly-once termination with no fleet to fail over to)
+    health = (ReplicaHealth(robustness.health, "replica0")
+              if robustness is not None else None)
+    next_i = 0
+    t_start = time.perf_counter()
+    server.start(t_start)
+    now = 0.0
+
+    while server.rounds < max_rounds:
+        now = time.perf_counter() - t_start
+        while next_i < len(pending) and pending[next_i].arrival_time <= now:
+            server.submit(pending[next_i])
+            next_i += 1
+        status = server.step(now)
+        if health is not None:
+            health.observe(status, busy=server.busy(),
+                           error=server.last_error
+                           if status == "error" else None)
+            if health.is_dead:
+                break
+        if status == "idle":
+            if next_i >= len(pending):
+                break
+            if realtime_arrivals:
+                time.sleep(min(0.001, pending[next_i].arrival_time - now))
+            else:
+                compress_idle_gap(pending, next_i, now)
+        elif status == "starved":
+            time.sleep(0.0005)
+
+    if health is not None and health.is_dead:
+        # the lone replica died: every request not already terminal sheds.
+        # Submitted requests unwind their bookings through the scheduler;
+        # unarrived backlog never registered anything and just marks shed.
+        for i, r in enumerate(pending):
+            if r.state == RequestState.FINISHED:
+                continue
+            if i < next_i:
+                scheduler.shed_request(r, reason="replica_failure")
+            else:
+                r.shed_reason = "replica_failure"
+                r.state = RequestState.FINISHED
+            server.outputs[r.req_id] = list(r.output_tokens)
+            server.crash_shed.append(r)
+
+    server.finish()
+    now = time.perf_counter() - t_start
+
+    samples = (
+        (np.stack(server.feats), np.asarray(server.lats))
+        if collect_samples and server.feats else None
+    )
+    return ServeResult(
+        report=summarize(requests, makespan=now),
+        requests=requests,
+        rounds=server.rounds,
+        wall_s=now,
+        samples=samples,
+        outputs=server.outputs,
+        memory=(
+            summarize_memory(kv_pool, scheduler.stats) if kv_pool is not None else None
+        ),
+        host_bubble_ms=list(engine.bubble_ms),
+        slo=(
+            summarize_slo(requests, scheduler.fairness.registry)
+            if scheduler.fairness is not None else None
+        ),
+        robustness=(
+            summarize_robustness(
+                FailoverStats(), injector=server.injector,
+                quarantined=len(server.quarantined),
+                crash_unwinds=server.crash_unwinds,
+                crash_shed=len(server.crash_shed),
+            )
+            if robustness is not None else None
+        ),
+    )

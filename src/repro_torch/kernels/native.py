@@ -1,0 +1,140 @@
+"""Build, load and call the port's hand-written CUDA kernels.
+
+Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+its own shared library with a plain C interface and loaded with ``ctypes``:
+pointers and the stream go over as ``c_void_p``, sizes as ``c_int``.  The
+build happens at first use, into ``kernels/build/`` (listed in
+``.gitignore``), one ``nvcc`` process per source, all started together.  Each
+library's file name carries a hash of its sources and flags, so a changed
+kernel rebuilds and an unchanged one loads at once.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port on a machine without ``nvcc`` or a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+KERNELS = ("paged_decode_attention", "paged_prefill_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+
+_fns: Dict[str, ctypes._CFuncPtr] = {}
+# ptxas report (registers, shared memory, spills) of each kernel built by
+# this process, for chip_smoke.py to print
+build_logs: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the "
+            "port's CUDA kernels are built from source at first use")
+    return path
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every kernel whose library is missing, all sources in
+    parallel; returns the wall seconds spent.  Raises with nvcc's output if
+    any compile fails."""
+    t0 = time.perf_counter()
+    todo = [(n, library_path(n)) for n in KERNELS if not library_path(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name, out in todo:
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log = proc.communicate()[0]
+        build_logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)     # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of ``csrc/<name>.cu``, built if needed."""
+    fn = _fns.get(name)
+    if fn is None:
+        build_all()
+        fn = getattr(ctypes.CDLL(str(library_path(name))), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, dtype: Optional[torch.dtype],
+                      ndim: int, device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of the given rank and
+    dtype on ``device``, with a 16-byte aligned base (the kernels' vector
+    loads)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {ndim} dims")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def check_attention_dims(dtype: torch.dtype, n_q_heads: int, n_kv_heads: int,
+                         hd: int, device: torch.device) -> None:
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {dtype}; the kernels take "
+                         f"{sorted(str(d) for d in DTYPE_CODES)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if n_kv_heads <= 0 or n_q_heads % n_kv_heads:
+        raise ValueError(f"Hq={n_q_heads} is not a multiple of Hkv={n_kv_heads}")
+    if device.index is not None and device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {device} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on_error(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {rc}")

@@ -1,0 +1,72 @@
+"""Paged flash-decode attention: a hand-written CUDA kernel for Hopper and
+its plain PyTorch version.
+
+Replaces the TPU kernel ``paged_decode_attention``
+(``src/repro/kernels/paged_decode_attention.py``, ``pallas_call`` at :249):
+one query token per sequence, q ``(B, Hq, hd)``, against a physical page pool
+``(n_pages, page_size, Hkv, hd)`` addressed by ``block_tables (B,
+max_pages)``; keys at positions ``>= kv_len`` are masked.
+
+Bound on an H100: bytes.  The function must read each sequence's live K and
+V once, ``2 * kv_len * Hkv * hd * 2`` bytes in bf16, for about one FLOP per
+byte.  The kernel (``csrc/paged_decode_attention.cu``) therefore runs one CTA
+per (sequence, kv head) holding the whole query group, so a K/V page is read
+once per group, with 16-byte coalesced loads of whole head rows and nothing
+read past ``kv_len``; its dot products are plain f32 FMA.
+
+On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises.  The TPU kernel's ``pages_per_tile`` and
+``buffering_depth`` (VMEM tile width and DMA depth) have no counterpart here.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import native
+from repro_torch.kernels.ref import (
+    paged_decode_attention_ref as paged_decode_attention_plain,
+)
+
+MAX_GROUP = 8          # query heads per kv head one CTA holds (kMaxGroup)
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens):
+    """q (B, Hq, hd); k/v_pages (n_pages, page_size, Hkv, hd); block_tables
+    (B, max_pages) int32; kv_lens (B,) int32 -> (B, Hq, hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
+                                            kv_lens)
+    dev = q.device
+    B, Hq, hd = q.shape
+    n_pages, ps, Hkv, _ = k_pages.shape
+    native.check_attention_dims(q.dtype, Hq, Hkv, hd, dev)
+    if Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"query group {Hq // Hkv} > {MAX_GROUP}")
+    native.check_cuda_tensor("q", q, q.dtype, 3, dev)
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        native.check_cuda_tensor(name, t, q.dtype, 4, dev)
+        if t.shape != (n_pages, ps, Hkv, hd):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{(n_pages, ps, Hkv, hd)}")
+    native.check_cuda_tensor("block_tables", block_tables, torch.int32, 2, dev)
+    native.check_cuda_tensor("kv_lens", kv_lens, torch.int32, 1, dev)
+    if block_tables.shape[0] != B or kv_lens.shape[0] != B:
+        raise ValueError("block_tables / kv_lens batch != q batch")
+    out = torch.empty_like(q)
+    fn = native.load("paged_decode_attention", _ARGTYPES)
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+            B, Hq, Hkv, hd, ps, block_tables.shape[1],
+            native.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd), native.stream_ptr(dev))
+    native.raise_on_error("paged_decode_attention", rc)
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

@@ -1,0 +1,95 @@
+"""Plain PyTorch versions of the paged attention kernels (exact f32 math, no
+tiling): the port of ``repro/kernels/ref.py:14-106``.
+
+They are the CPU path of the engine and the references the CUDA kernels are
+held against on the card.  Like the jnp oracles, a row with no valid key
+comes out NaN (a softmax over nothing); the kernels store 0 there.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def chunked_prefill_attention_ref(
+    q,            # (B, Sq, Hq, hd)   the prefill chunk's queries
+    k_cache,      # (B, Skv, Hkv, hd) prefix KV incl. the chunk's own K
+    v_cache,      # (B, Skv, Hkv, hd)
+    kv_lens,      # (B,) valid KV length (prefix + chunk)
+    q_offset,     # (B,) absolute position of q[:, 0] (= prefix length)
+):
+    """Chunk of queries attends to (prefix ‖ itself) with a causal offset.
+
+    Query i (absolute pos q_offset + i) sees key j iff j <= q_offset + i and
+    j < kv_lens.  All math in f32.
+    """
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k_cache.shape[1], k_cache.shape[2]
+    g = Hq // Hkv
+    qf = q.float() * (1.0 / math.sqrt(hd))
+    kf = k_cache.float()
+    vf = v_cache.float()
+
+    qf = qf.reshape(B, Sq, Hkv, g, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
+    dev = q.device
+    q_pos = q_offset.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    k_pos = torch.arange(Skv, device=dev)[None, :]
+    mask = (k_pos[:, None, :] <= q_pos[:, :, None]) & (
+        k_pos[:, None, :] < kv_lens.long()[:, None, None]
+    )                                                            # (B, Sq, Skv)
+    scores = scores.masked_fill(~mask[:, None, None, :, :], -math.inf)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, vf)
+    return out.reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def decode_attention_ref(
+    q,            # (B, Hq, hd)   one query token per sequence
+    k_cache,      # (B, S, Hkv, hd)
+    v_cache,      # (B, S, Hkv, hd)
+    kv_lens,      # (B,) valid lengths
+):
+    """Single-token flash-decode reference: full softmax over the valid
+    cache."""
+    B, Hq, hd = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    g = Hq // Hkv
+    qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, Hkv, g, hd)
+    scores = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
+    mask = torch.arange(S, device=q.device)[None, :] < kv_lens.long()[:, None]
+    scores = scores.masked_fill(~mask[:, None, None, :], -math.inf)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.float())
+    return out.reshape(B, Hq, hd).to(q.dtype)
+
+
+def gather_pages(pages, block_tables):
+    """Materialize per-sequence dense K/V from a physical page pool.
+
+    pages: (n_pages, page_size, H, hd); block_tables: (B, max_pages) int
+    -> (B, max_pages * page_size, H, hd).  Padding table entries may point at
+    any valid page: positions past ``kv_lens`` are masked by the caller.
+    """
+    B, P = block_tables.shape
+    g = pages[block_tables.long()]               # (B, P, ps, H, hd)
+    return g.reshape(B, P * pages.shape[1], *pages.shape[2:])
+
+
+def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, kv_lens,
+                                q_offset):
+    """Paged chunked-prefill reference: gather the block table into a dense
+    cache, then the exact dense computation."""
+    return chunked_prefill_attention_ref(
+        q, gather_pages(k_pages, block_tables),
+        gather_pages(v_pages, block_tables), kv_lens, q_offset,
+    )
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, kv_lens):
+    """Paged flash-decode reference via dense gather."""
+    return decode_attention_ref(
+        q, gather_pages(k_pages, block_tables),
+        gather_pages(v_pages, block_tables), kv_lens,
+    )

@@ -1,0 +1,255 @@
+"""Serving entry point of the port: ``python -m repro_torch.launch.serve --full``.
+
+The colocated path of ``repro/launch/serve.py`` on PyTorch: one replica, the
+chunked-prefill engine with paged KV (split layout), the pipelined loop,
+recompute preemption, greedy sampling and the real scheduler
+(Aging/FCFS/SJF, APC, optional SLO tier and fault tolerance), with the
+full-width model on one NVIDIA GPU (``--full``) or a tiny one.  Weights are
+the port's seeded random init.  ``--device cpu`` runs the plain PyTorch
+path.
+
+Not ported yet, and refused with ``NotImplementedError``: ``--disagg``,
+``--lprs``, ``--dense-kv``, ``--kv-layout fused``, ``--preemption-mode
+swap`` and ``--nan-guard``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from repro_torch.configs import get_config, tiny_config
+from repro_torch.core.apc import APCConfig
+from repro_torch.core.scheduler import ChunkedPrefillScheduler, SchedulerConfig
+from repro_torch.core.slo import SLOConfig
+from repro_torch.tenancy.tenants import FairnessConfig, TenantSpec
+from repro_torch.engine.engine import EngineConfig, TorchEngine, serve
+from repro_torch.engine.kv_cache import pool_for_model
+from repro_torch.engine.workload import (
+    WorkloadSpec,
+    attach_prompt_tokens,
+    sharegpt_like,
+)
+
+
+# the fault sites the colocated port fires: the handoff sites belong to the
+# disaggregated router and nan_logits to the NaN guard, neither ported yet
+PORTED_FAULT_SITES = ("replica_step_crash", "slow_round_ms")
+
+
+def robustness_from_args(args):
+    """--failover / --chaos-seed -> a RobustnessConfig (or None: every serve
+    path stays bit-identical to the fault-oblivious code)."""
+    if not (args.failover or args.chaos_seed is not None):
+        return None
+    from repro_torch.robustness import FaultInjector, FaultPlan, RobustnessConfig
+
+    injector = None
+    if args.chaos_seed is not None:
+        plan = FaultPlan.fuzz(args.chaos_seed, n_faults=args.chaos_faults,
+                              sites=PORTED_FAULT_SITES)
+        injector = FaultInjector(plan)
+    return RobustnessConfig(max_retries=args.max_retries, injector=injector)
+
+
+def _refuse_unported(args) -> None:
+    unported = [
+        (args.disagg, "--disagg (disaggregated serving)", 7),
+        (args.lprs, "--lprs (the LPRS latency predictor)", 11),
+        (args.dense_kv, "--dense-kv (dense KV slots)", 9),
+        (args.kv_layout != "split", "--kv-layout fused", 6),
+        (args.preemption_mode != "recompute", "--preemption-mode swap", 5),
+        (args.nan_guard, "--nan-guard", 8),
+    ]
+    for on, what, item in unported:
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP.md, queue 1, item {item})")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain PyTorch path")
+    ap.add_argument("--policy", default="aging", choices=["fcfs", "sjf", "aging"])
+    ap.add_argument("--alpha", type=float, default=1.0)
+    ap.add_argument("--beta", type=float, default=-0.01)
+    ap.add_argument("--token-budget", type=int, default=128)
+    ap.add_argument("--n-requests", type=int, default=32)
+    ap.add_argument("--interval", type=float, default=0.02)
+    ap.add_argument("--lprs", action="store_true")
+    ap.add_argument("--apc", action="store_true")
+    ap.add_argument("--dense-kv", action="store_true")
+    ap.add_argument("--sync-engine", action="store_true",
+                    help="synchronous round loop instead of the overlapped "
+                         "schedule/execute pipeline (A/B baseline; outputs "
+                         "are identical under greedy sampling)")
+    ap.add_argument("--kv-layout", default="split", choices=["split", "fused"])
+    ap.add_argument("--preemption-mode", default="recompute",
+                    choices=["recompute", "swap"])
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="enable the hash-based KV prefix cache (block-aligned "
+                         "prompt reuse; hits skip the matched prefill compute)")
+    ap.add_argument("--kv-blocks", type=int, default=2048,
+                    help="KV pool size in blocks")
+    ap.add_argument("--disagg", action="store_true")
+    ap.add_argument("--ttft-slo", type=float, default=0.0,
+                    help="time-to-first-token SLO in seconds (0 = off); "
+                         "either SLO enables the SLO tier")
+    ap.add_argument("--e2e-slo", type=float, default=0.0,
+                    help="end-to-end completion SLO in seconds (0 = off)")
+    ap.add_argument("--failover", action="store_true",
+                    help="fault-tolerant serving: crash unwinds and replica "
+                         "health tracking")
+    ap.add_argument("--max-retries", type=int, default=3)
+    ap.add_argument("--nan-guard", action="store_true")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="fuzz a deterministic fault plan from this seed "
+                         "over the replica crash and slow-round sites and "
+                         "inject it (implies --failover)")
+    ap.add_argument("--chaos-faults", type=int, default=3)
+    ap.add_argument("--full", action="store_true",
+                    help="the architecture at its published width")
+    ap.add_argument("--json", default=None)
+    ap.add_argument("--profile", default=None, metavar="TRACE_JSON",
+                    help="trace the serve run with torch.profiler: print the "
+                         "ops by device time and the device-busy share, and "
+                         "write a Chrome trace to this path")
+    return ap
+
+
+def build(args):
+    """(engine, scheduler, kv_pool, requests) for the parsed arguments: the
+    engine is bound to the pool and warmed up, every kernel built."""
+    _refuse_unported(args)
+    model_cfg = get_config(args.arch) if args.full else tiny_config(args.arch)
+    engine = TorchEngine(model_cfg, EngineConfig(
+        n_slots=16, max_context=512, pipelined=not args.sync_engine,
+    ), device=args.device)
+
+    fairness_cfg = None
+    slo_cfg = None
+    if args.ttft_slo > 0 or args.e2e_slo > 0:
+        # SLO tier: the workload's single "default" tenant carries the
+        # deadlines; fairness is required (the tracker lives on its registry)
+        fairness_cfg = FairnessConfig(tenants=(TenantSpec(
+            "default",
+            ttft_slo_s=args.ttft_slo if args.ttft_slo > 0 else None,
+            e2e_slo_s=args.e2e_slo if args.e2e_slo > 0 else None,
+        ),))
+        slo_cfg = SLOConfig()
+
+    sched = ChunkedPrefillScheduler(SchedulerConfig(
+        policy=args.policy, alpha=args.alpha, beta=args.beta,
+        token_budget=args.token_budget, max_seqs=16,
+        apc=APCConfig(c_max=4, l_min=16) if args.apc else None,
+        fairness=fairness_cfg,
+        slo=slo_cfg,
+    ))
+    reqs = sharegpt_like(WorkloadSpec(
+        n_requests=args.n_requests, inter_arrival_s=args.interval,
+        max_context=256, max_new_tokens=48, seed=1,
+    ))
+    attach_prompt_tokens(reqs, model_cfg.vocab_size, seed=1)
+    kv_pool = pool_for_model(model_cfg, n_blocks=args.kv_blocks,
+                             enable_prefix_cache=args.prefix_cache)
+    # bind first: warm-up runs against the physical pool serving will use
+    engine.bind_kv_pool(kv_pool)
+    engine.warmup()
+    return engine, sched, kv_pool, reqs
+
+
+# Chrome-trace categories of work on the device itself
+DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_busy_ms(trace_events) -> float:
+    """Milliseconds in which the device ran at least one kernel, copy or
+    memset: the union of those events' intervals in a Chrome trace."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace_events
+                   if e.get("ph") == "X" and e.get("cat") in DEVICE_EVENT_CATS)
+    busy_us, end = 0.0, float("-inf")
+    for t0, t1 in spans:
+        if t1 > end:
+            busy_us += t1 - max(t0, end)
+            end = t1
+    return busy_us / 1e3
+
+
+def profiled(run, trace_path: str):
+    """``run()`` under torch.profiler (CPU and, on a card, CUDA activity):
+    prints the top ops by self device time, the device-busy share of the
+    serve wall time, and writes a Chrome trace.  Tracing slows the host
+    side; read host times from an untraced run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = torch.cuda.is_available()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=acts) as prof:
+        res = run()
+        if on_card:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(trace_path)
+    avg = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(avg[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    print(avg.table(sort_by=key, row_limit=25))
+    # from the trace's device events: summing the non-CPU rows of
+    # key_averages() instead came to about twice the kernels' own time
+    with open(trace_path) as f:
+        busy_ms = device_busy_ms(json.load(f)["traceEvents"])
+    print(f"device busy {busy_ms:.1f} ms of {res.wall_s * 1e3:.1f} ms serve "
+          f"wall ({busy_ms / (res.wall_s * 1e3):.1%}); trace: {trace_path}")
+    return res
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    engine, sched, kv_pool, reqs = build(args)
+
+    def run():
+        return serve(reqs, sched, engine, kv_pool=kv_pool,
+                     collect_samples=False,
+                     robustness=robustness_from_args(args))
+
+    res = profiled(run, args.profile) if args.profile else run()
+
+    row = res.report.row()
+    dev = engine.device
+    print(f"\n=== {args.arch}{'' if args.full else '-tiny'} on "
+          f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}"
+          f" | policy={args.policy} apc={args.apc} kv=paged/split "
+          f"loop={'sync' if args.sync_engine else 'pipelined'} "
+          f"prefix_cache={args.prefix_cache} preempt=recompute ===")
+    print(f"finished {res.report.n_finished}/{res.report.n_total} "
+          f"in {res.wall_s:.2f}s  ({res.rounds} rounds)")
+    if res.robustness is not None:
+        rb = res.robustness
+        print(f"  fault tolerance: crash_unwinds={rb.crash_unwinds} "
+              f"quarantined={rb.quarantined} faults_fired={rb.faults_fired}")
+    for k, v in row.items():
+        print(f"  {k:16s} {v*1e3 if 'e2e' in k or 'ttft' in k or 'prefill' in k or 'tpot' in k else v:10.2f}"
+              + (" ms" if any(t in k for t in ("e2e", "ttft", "prefill", "tpot")) else ""))
+    mem = res.memory
+    if mem is not None:
+        print(f"  kv: hit_rate={mem.cache_hit_rate:.2%} "
+              f"hit_tokens={mem.cache_hit_tokens} evictions={mem.evictions} "
+              f"preemptions={mem.preemptions} cached_blocks={mem.cached_blocks}")
+    if res.slo is not None:
+        for t, rep in res.slo.per_tenant.items():
+            print(f"  slo[{t}]: attained={rep.attained} "
+                  f"violated={rep.violated} shed={rep.shed} "
+                  f"attainment={rep.attainment:.2%} "
+                  f"p50_ttft_slack={rep.ttft_slack_s['p50'] * 1e3:.1f} ms")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"report": row, "rounds": res.rounds, "wall_s": res.wall_s,
+                       "memory": mem.row() if mem is not None else None,
+                       "slo": res.slo.row() if res.slo is not None else None}, f)
+    return res
+
+
+if __name__ == "__main__":
+    main()

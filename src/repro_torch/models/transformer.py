@@ -1,0 +1,147 @@
+"""Decoder-only dense transformer LM: parameter init and the engine's paged
+chunked step (the port of ``repro/models/transformer.py:108-123`` and
+``:292-408``, split KV layout).
+
+Parameters are a dict mirroring the JAX pytree, except that ``"layers"`` is
+a list with one dict per layer instead of arrays with a stacked leading
+layer dim: PyTorch runs the layer loop in Python, where JAX scanned.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers as L
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def _block_init(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
+    return {
+        "attn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "attn": L.init_attention(gen, cfg, dtype, device),
+        "ffn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "ffn": L.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device),
+    }
+
+
+def _block_ffn(p, x, cfg: ModelConfig):
+    h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    return x + L.ffn(p["ffn"], h)
+
+
+class TransformerLM:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    # -- params ------------------------------------------------------------
+    def init(self, gen: torch.Generator, device) -> Dict[str, Any]:
+        """Seeded random weights with the shapes and init distribution of
+        ``repro.models.transformer.TransformerLM.init`` (the draws differ:
+        torch's generator is not JAX's)."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.param_dtype)
+        params = {
+            "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model), dt,
+                                  device, scale=0.02),
+            "layers": [_block_init(gen, cfg, dt, device)
+                       for _ in range(cfg.n_layers)],
+            "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.dense_init(
+                gen, (cfg.d_model, cfg.vocab_size), dt, device,
+                scale=1.0 / math.sqrt(cfg.d_model))
+        return params
+
+    def _unembed(self, params, x):
+        if "lm_head" in params:
+            return x @ params["lm_head"]
+        return x @ params["embed"].t()
+
+    # -- the engine round ----------------------------------------------------
+    def chunked_step_paged(self, params, tokens, kv_pages, lens, chunk_lens,
+                           block_tables, *, pages_per_tile: int = 1,
+                           kv_layout: str = "split",
+                           buffering_depth: int = 1):
+        """One chunked-prefill round against a paged KV cache (vLLM layout).
+
+        tokens (B, C) right-padded; kv_pages {"k", "v"} each
+        ``(L, n_pages, page_size, Hkv, hd)``; lens (B,) int32 tokens already
+        cached; chunk_lens (B,) int32 tokens this round (decode 1, prefill
+        its chunk, idle 0); block_tables (B, max_pages) int32.  New K/V for
+        position ``p`` of slot ``b`` goes to flat row
+        ``block_tables[b, p // ps] * ps + p % ps``; padding lanes go to the
+        last physical page (the sink) and are never read back.
+
+        The pool is updated IN PLACE (JAX returned a new one and donated the
+        old buffer); returns the logits at each slot's last chunk position.
+        A bucket of C == 1 runs the paged decode kernel, C > 1 the paged
+        prefill kernel (decode slots of a mixed round included).
+        """
+        if kv_layout != "split":
+            raise NotImplementedError(
+                "kv_layout='fused' is not ported yet (ROADMAP.md, queue 1, "
+                "item 6)")
+        cfg = self.cfg
+        assert not cfg.sliding_window, "engine demo path supports linear caches"
+        B, C = tokens.shape
+        k_pool, v_pool = kv_pages["k"], kv_pages["v"]
+        n_phys, ps = k_pool.shape[1:3]
+        dev = tokens.device
+        positions = lens[:, None] + torch.arange(C, dtype=torch.int32,
+                                                 device=dev)[None, :]
+        write_mask = (torch.arange(C, device=dev)[None, :]
+                      < chunk_lens[:, None])                      # (B, C)
+        # logical position -> physical flat row via the block table; padding
+        # lanes may index past the table (JAX clamps such gathers) and are
+        # redirected to the sink page below
+        page_idx = (positions // ps).long().clamp_(max=block_tables.shape[1] - 1)
+        page_of = torch.gather(block_tables, 1, page_idx)
+        flat_pos = page_of * ps + positions % ps
+        write_pos = torch.where(write_mask, flat_pos,
+                                (n_phys - 1) * ps).reshape(-1).long()
+        kv_lens = lens + chunk_lens
+        keep = write_mask[:, :, None, None]
+
+        x = params["embed"][tokens.long()]
+        for l, lp in enumerate(params["layers"]):
+            h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+            q, k_new, v_new = L.qkv_project(lp["attn"], h, cfg, positions)
+            # masked lanes land in the SHARED sink page: write zeros, never
+            # lane values -- idle rows carry NaN under the plain attention
+            # (all-masked softmax) and a NaN parked in shared storage would
+            # poison other rows' masked-position 0*V products.  Zeroing also
+            # makes the duplicate sink indices of index_put_ harmless: every
+            # write to that row carries the same value.
+            k_new = torch.where(keep, k_new, 0.0)
+            v_new = torch.where(keep, v_new, 0.0)
+            ck, cv = k_pool[l], v_pool[l]                # (n_phys, ps, Hkv, hd)
+            ck.view(n_phys * ps, *ck.shape[2:]).index_put_(
+                (write_pos,), k_new.reshape(B * C, *k_new.shape[2:]))
+            cv.view(n_phys * ps, *cv.shape[2:]).index_put_(
+                (write_pos,), v_new.reshape(B * C, *v_new.shape[2:]))
+            if C == 1:
+                attn = kops.paged_flash_decode_attention(
+                    q[:, 0], ck, cv, block_tables, kv_lens,
+                    pages_per_tile=pages_per_tile,
+                    buffering_depth=buffering_depth,
+                )[:, None]
+            else:
+                attn = kops.paged_prefill_chunk_attention(
+                    q, ck, cv, block_tables, kv_lens, lens,
+                    pages_per_tile=pages_per_tile,
+                    buffering_depth=buffering_depth,
+                )
+            y = x + L.attn_output(lp["attn"], attn, cfg)
+            x = _block_ffn(lp, y, cfg)
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        last = (chunk_lens - 1).clamp(min=0).long()
+        x_last = x[torch.arange(B, device=dev), last]            # (B, D)
+        return self._unembed(params, x_last)

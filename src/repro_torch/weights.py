@@ -1,0 +1,67 @@
+"""Weights from the JAX package into the port.
+
+``from_jax_params`` takes the JAX dense transformer's parameter pytree (as
+built by ``repro.models.transformer.TransformerLM.init``: nested dicts whose
+layer leaves carry a stacked leading layer dim), with every leaf already a
+numpy array, and returns the port's parameter dict: the same names and
+per-layer shapes, with ``"layers"`` a list of per-layer dicts.  The caller
+converts the arrays (``jax.tree_util.tree_map(np.asarray, params)``), so this
+module needs no JAX.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import torch_dtype
+
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.array(a)              # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        # numpy has no bf16 of its own (JAX's comes from ml_dtypes): move the
+        # raw 16-bit patterns and reinterpret them
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype).contiguous()
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def from_jax_params(numpy_tree: Dict[str, Any], cfg: ModelConfig,
+                    device="cuda") -> Dict[str, Any]:
+    """JAX param pytree (numpy leaves) -> the port's params on ``device`` in
+    ``cfg.param_dtype``."""
+    dt = torch_dtype(cfg.param_dtype)
+    stacked = numpy_tree["layers"]
+    n_layers = cfg.n_layers
+    for leaf in _leaves(stacked):
+        if np.shape(leaf)[0] != n_layers:
+            raise ValueError(f"layer leaf of shape {np.shape(leaf)} does not "
+                             f"stack {n_layers} layers")
+    params = {
+        "embed": _tensor(numpy_tree["embed"], dt, device),
+        "final_norm": _tensor(numpy_tree["final_norm"], dt, device),
+        "layers": [_tree(stacked, lambda a, i=i: _tensor(np.asarray(a)[i], dt,
+                                                         device))
+                   for i in range(n_layers)],
+    }
+    if "lm_head" in numpy_tree:
+        params["lm_head"] = _tensor(numpy_tree["lm_head"], dt, device)
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
