@@ -6,9 +6,10 @@
 Phases, each of which raises (exit code != 0) on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``).
-2. build: compile every CUDA kernel of the serving path from ``csrc/``
-   (one ``nvcc`` per source, in parallel) and print ptxas's report.
-3. kernels: each kernel against its plain PyTorch version on the card, at
+2. build: compile every CUDA kernel of the serving paths from ``csrc/``
+   (six libraries, one ``nvcc`` per source, in parallel) and print ptxas's
+   report.
+3. kernels: each attention kernel against its plain PyTorch version on the card, at
    the main path's shapes (full-width qwen1.5-0.5b: B=16, Hq=Hkv=16, hd=64,
    page 16, ragged kv_lens up to 512 through permuted block tables, every
    chunk bucket) and one GQA shape (32/8 heads, as llama3.2-1b) at head
@@ -18,14 +19,38 @@ Phases, each of which raises (exit code != 0) on failure:
    over the gathered dense K/V (``library_ms``, a yardstick the port never
    calls) with CUDA events, L2 flushed before each launch; computes the
    least time the card could take (``bound_ms``).
-4. reference: one prefill round and one decode round of the full-width model
-   through the kernels on the card against the same rounds on the CPU
-   through the plain versions (same bf16 weights; bf16 tolerance).
+4. swap kernels: the four KV swap kernels against their plain versions on
+   the serve pool ``(24, 2049, 16, 16, 64)`` in bf16 and f32, id buckets 8
+   and 32 of permuted ids padded with the sink page (one all-zero page and
+   one all-zero head among them): gather, scatter, INT8 codes, scales and
+   dequantized pages BITWISE equal, every page outside the ids and the
+   sink unchanged; a full-width round trip (gather, copy to pinned host
+   memory and back, scatter into other pages) returns the same bytes in
+   bf16 and, through the INT8 pair, stays within half a quantization step
+   (plus one bf16 rounding) per element.  Times each kernel, its plain
+   version and ``index_select`` / ``index_copy_`` (``library_ms``; none
+   for the INT8 pair), and the host copies of one staged tensor; the bound
+   counts each distinct page once (the real ones and one sink).
 5. serve: what ``python -m repro_torch.launch.serve --full`` runs -- 32
    ShareGPT-like requests through the pipelined engine with paged KV --
    with the kernels' launch counters zeroed after warm-up; every request
    must finish with its full token count and both kernels must have run
    (decode 24 times per pure-decode round).
+6. serve, swap: the same with ``--preemption-mode swap --kv-blocks 48``:
+   swap preemptions happen and are all restored, the gather runs twice
+   (K and V) per swap-out and the scatter twice per restore, nothing stays
+   staged and the pool's invariants hold.
+7. serve, INT8 host tier: the same through ``host_kv_dtype="int8"``: the
+   INT8 pair runs as the fp pair did, and the fp pair not at all.
+8. serve, disagg: ``--disagg`` (1 prefill + 1 decode replica sharing one
+   weight set): every request hands off exactly once, the decode pool
+   prefills 0 tokens, the router's invariants hold, and the swap pair runs
+   twice per export and per import.  Greedy tokens of phases 6-8 are
+   compared with phase 5's and printed, not gated (bf16 GEMMs of other
+   batch shapes may round differently).
+9. reference: one prefill round and one decode round of the full-width model
+   through the kernels on the card against the same rounds on the CPU
+   through the plain versions (same bf16 weights; bf16 tolerance).
 
 The second-to-last line is a JSON object listing every kernel with its
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -44,6 +69,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12        # f32 outside the tensor cores
 # kernel and plain version both accumulate in f32 and round the output once,
 # so in bf16 they may differ by one rounding step: one bf16 ulp is at most
 # 2**-7 |x|.  Never more than 2e-2 absolute.
@@ -105,9 +131,10 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float,
+             flops_per_s: float = BF16_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -277,7 +304,435 @@ def kernel_phase(torch):
     return results
 
 
-# -- phase 4: full-width model, kernels on the card vs plain on the CPU --------
+# -- phase 4: the KV swap kernels vs their plain versions -----------------------
+SWAP_POOL = (24, 2049, 16, 16, 64)   # (L, n_phys, ps, Hkv, hd): the serve pool
+# (bucket, real pages): a short victim, and the serve workload's longest
+# (256 prompt + 48 output tokens = 19 pages, bucket 32)
+SWAP_BUCKETS = ((8, 5), (32, 19))
+SWAP_KERNELS = ("swap_gather_pages", "swap_scatter_pages",
+                "swap_gather_pages_q8", "swap_scatter_pages_q8")
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two tensors (floats compared as their bits)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        iv = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        a, b = a.view(iv), b.view(iv)
+    return torch.equal(a, b)
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a - b| in f32 (exact for bf16, f32 and int8), one layer at a
+    time to bound the temporary."""
+    return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def swap_ids(torch, gen, bucket, n_real, n_phys):
+    """``n_real`` distinct permuted page ids padded to ``bucket`` with the
+    sink page (the last), as the engine pads them."""
+    sink = n_phys - 1
+    real = torch.randperm(sink, generator=gen, device="cuda")[:n_real]
+    pad = torch.full((bucket - n_real,), sink, device="cuda")
+    return torch.cat([real, pad]).to(torch.int32)
+
+
+def check_scatter(torch, name, got, want, before, ids) -> float:
+    """``got`` (kernel) equals ``want`` (plain) on every page but the sink
+    (duplicate sink writes race by design), and every page outside ``ids``
+    and the sink is unchanged from ``before``.  Returns max |got - want|
+    over the non-sink pages."""
+    sink = before.shape[1] - 1
+    require(same_bits(got[:, :sink], want[:, :sink]),
+            f"{name}: kernel and plain version disagree on a non-sink page")
+    keep = torch.ones(before.shape[1], dtype=torch.bool, device="cuda")
+    keep[ids.long()] = False
+    keep = keep.nonzero().flatten()
+    require(same_bits(got.index_select(1, keep), before.index_select(1, keep)),
+            f"{name}: a page outside the ids changed")
+    return max_abs_diff(got[:, :sink], want[:, :sink])
+
+
+def swap_case(torch, timer, gen, pages, bucket, n_real, timed):
+    """Each swap kernel against its plain version on ``pages``; returns, per
+    kernel, max |kernel - plain| over what was compared and, when
+    ``timed``, its times and bound."""
+    from repro_torch.kernels import swap as sw
+
+    L, n_phys, ps, H, hd = pages.shape
+    dtype = pages.dtype
+    ids = swap_ids(torch, gen, bucket, n_real, n_phys)
+    dst = swap_ids(torch, gen, bucket, n_real, n_phys)
+    # an all-zero page and an all-zero head among the gathered ones: the
+    # INT8 gather's scale-0 path
+    pages[:, ids[0].item()] = 0
+    pages[:, ids[1].item(), :, 3] = 0
+
+    err = {}
+    got = sw.swap_gather_pages(pages, ids)
+    want = sw.swap_gather_pages_plain(pages, ids)
+    require(same_bits(got, want),
+            "swap_gather_pages disagrees with its plain version")
+    err["swap_gather_pages"] = max_abs_diff(got, want)
+    staged = torch.randn(got.shape, generator=gen, device="cuda").to(dtype)
+    del got, want
+    p_k = sw.swap_scatter_pages(pages.clone(), dst, staged)
+    p_p = sw.swap_scatter_pages_plain(pages.clone(), dst, staged)
+    err["swap_scatter_pages"] = check_scatter(
+        torch, "swap_scatter_pages", p_k, p_p, pages, dst)
+    del p_k, p_p
+    qk, sk = sw.swap_gather_pages_q8(pages, ids)
+    qp, sp = sw.swap_gather_pages_q8_plain(pages, ids)
+    require(same_bits(qk, qp), "swap_gather_pages_q8: codes disagree")
+    require(same_bits(sk, sp), "swap_gather_pages_q8: scales disagree")
+    require(bool((sk[:, 0] == 0).all()) and bool((sk[:, 1, :, 3] == 0).all()),
+            "swap_gather_pages_q8: an all-zero head has a scale != 0")
+    err["swap_gather_pages_q8"] = max(max_abs_diff(qk, qp),
+                                      max_abs_diff(sk, sp))
+    del qk, sk
+    p_k = sw.swap_scatter_pages_q8(pages.clone(), dst, qp, sp)
+    p_p = sw.swap_scatter_pages_q8_plain(pages.clone(), dst, qp, sp)
+    err["swap_scatter_pages_q8"] = check_scatter(
+        torch, "swap_scatter_pages_q8", p_k, p_p, pages, dst)
+    del p_k, p_p
+    torch.cuda.synchronize()
+    out = {name: {"max_abs_err": e} for name, e in err.items()}
+    if not timed:
+        return out
+
+    # the yardsticks take int64 ids
+    ids64, dst64 = ids.long(), dst.long()
+    # the least traffic these ids need: each distinct page (the real ones
+    # and one sink) read once by a gather, each distinct target page (one
+    # sink write at most) written once by a scatter, whose staged rows for
+    # the repeated sink ids need not be read; a gather writes its whole
+    # staged output
+    n_src = int(torch.unique(ids).numel())
+    n_dst = int(torch.unique(dst).numel())
+    page_elems = ps * H * hd
+    page_bytes = page_elems * pages.element_size()
+    scale_bytes = 4 * H                         # one f32 scale per head
+    id_bytes = 4 * bucket
+    p_k, p_p = pages.clone(), pages.clone()
+    for name, fn, plain, lib, n_bytes, n_ops in (
+        ("swap_gather_pages",
+         lambda: sw.swap_gather_pages(pages, ids),
+         lambda: sw.swap_gather_pages_plain(pages, ids),
+         lambda: torch.index_select(pages, 1, ids64),
+         L * (n_src + bucket) * page_bytes + id_bytes, 0),
+        ("swap_scatter_pages",
+         lambda: sw.swap_scatter_pages(p_k, dst, staged),
+         lambda: sw.swap_scatter_pages_plain(p_p, dst, staged),
+         lambda: p_p.index_copy_(1, dst64, staged),
+         2 * L * n_dst * page_bytes + id_bytes, 0),
+        # |x|, running max, divide, round, clip (2): 6 f32 operations for
+        # each element of a distinct page
+        ("swap_gather_pages_q8",
+         lambda: sw.swap_gather_pages_q8(pages, ids),
+         lambda: sw.swap_gather_pages_q8_plain(pages, ids),
+         None,
+         L * n_src * page_bytes + L * bucket * (page_elems + scale_bytes)
+         + id_bytes, 6 * L * n_src * page_elems),
+        # one f32 multiply each
+        ("swap_scatter_pages_q8",
+         lambda: sw.swap_scatter_pages_q8(p_k, dst, qp, sp),
+         lambda: sw.swap_scatter_pages_q8_plain(p_p, dst, qp, sp),
+         None,
+         L * n_dst * (page_elems + scale_bytes + page_bytes) + id_bytes,
+         L * n_dst * page_elems),
+    ):
+        b_ms, b_by = bound_ms(n_bytes, n_ops, F32_FLOPS_PER_S)
+        out[name].update({
+            "ms": timer(fn), "plain_ms": timer(plain),
+            "library_ms": timer(lib) if lib is not None else None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"pages {tuple(pages.shape)} {str(dtype)[6:]} ids "
+                     f"{bucket} ({n_real} real, sink-padded)"})
+    # the timed pools: the INT8 scatter wrote last into both
+    e = check_scatter(torch, "swap_scatter_pages_q8 (timed pools)", p_k, p_p,
+                      pages, dst)
+    out["swap_scatter_pages_q8"]["max_abs_err"] = max(
+        out["swap_scatter_pages_q8"]["max_abs_err"], e)
+    del p_k, p_p
+    return out
+
+
+def round_trip(torch, timer, gen, pages, bucket, n_real):
+    """Gather, copy to pinned host memory and back, scatter into other
+    pages: the same bytes in the pool's dtype; within half a quantization
+    step (plus one rounding to the pool's dtype) through the INT8 pair.
+    Returns the host-copy times of one staged tensor."""
+    from repro_torch.kernels import swap as sw
+
+    L, n_phys = pages.shape[:2]
+    ids = swap_ids(torch, gen, bucket, n_real, n_phys)
+    dst = swap_ids(torch, gen, bucket, n_real, n_phys)
+    real, dst_real = ids[:n_real].long(), dst[:n_real].long()
+
+    def via_host(t):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        torch.cuda.synchronize()
+        return host, host.to("cuda", non_blocking=True)
+
+    staged = sw.swap_gather_pages(pages, ids)
+    host, back = via_host(staged)
+    p_r = sw.swap_scatter_pages(pages.clone(), dst, back)
+    require(same_bits(p_r.index_select(1, dst_real), pages.index_select(1, real)),
+            "fp round trip changed the bytes")
+    q, scales = sw.swap_gather_pages_q8(pages, ids)
+    (hq, q_back), (hs, s_back) = via_host(q), via_host(scales)
+    sw.swap_scatter_pages_q8(p_r, dst, q_back, s_back)
+    x = pages.index_select(1, real).float()
+    err = (p_r.index_select(1, dst_real).float() - x).abs()
+    bound = scales[:, :n_real] * 0.5 + 1e-6
+    if pages.dtype == torch.bfloat16:
+        bound = bound + x.abs() * 2.0 ** -8
+    require(bool((err <= bound).all()),
+            f"INT8 round trip: max |d| {err.max().item():.3e} over the bound")
+    del p_r
+    times = {
+        "d2h_fp_ms": timer(lambda: host.copy_(staged, non_blocking=True)),
+        "h2d_fp_ms": timer(lambda: back.copy_(host, non_blocking=True)),
+        "d2h_q8_ms": timer(lambda: (hq.copy_(q, non_blocking=True),
+                                    hs.copy_(scales, non_blocking=True))),
+        "h2d_q8_ms": timer(lambda: (q_back.copy_(hq, non_blocking=True),
+                                    s_back.copy_(hs, non_blocking=True))),
+        "fp_bytes": staged.numel() * staged.element_size(),
+        "q8_bytes": q.numel() + scales.numel() * 4,
+    }
+    return times
+
+
+def swap_kernel_phase(torch):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    timer = Timer(torch)
+    results, worst = {}, {n: 0.0 for n in SWAP_KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        pages = torch.randn(SWAP_POOL, generator=gen, device="cuda").to(dtype)
+        for bucket, n_real in SWAP_BUCKETS:
+            # timed at the main path's shapes: bf16, the longest victim
+            timed = dtype == torch.bfloat16 and bucket == 32
+            r = swap_case(torch, timer, gen, pages, bucket, n_real, timed)
+            log(f"  swap kernels {str(dtype)[6:]} bucket {bucket} "
+                f"({n_real} real): bitwise equal to the plain versions, "
+                "pages outside the ids unchanged; max |kernel - plain| "
+                f"{max(v['max_abs_err'] for v in r.values()):.3e}")
+            for name, v in r.items():
+                worst[name] = max(worst[name], v["max_abs_err"])
+            if timed:
+                results = r
+        if dtype == torch.bfloat16:
+            t = round_trip(torch, timer, gen, pages, 32, 19)
+            log(f"  round trip bf16 (bucket 32) exact, INT8 within the bound; "
+                f"host copies of one staged tensor: fp {t['fp_bytes']} B "
+                f"D2H {t['d2h_fp_ms']:.4f} ms H2D {t['h2d_fp_ms']:.4f} ms, "
+                f"INT8 {t['q8_bytes']} B D2H {t['d2h_q8_ms']:.4f} ms "
+                f"H2D {t['h2d_q8_ms']:.4f} ms")
+        del pages
+        torch.cuda.empty_cache()
+    # the kernels line reports the timed case and the worst error over
+    # every case
+    for name, r in results.items():
+        r["max_abs_err"] = worst[name]
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms library {lib} bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}) max |kernel - plain| {r['max_abs_err']:.3e}")
+    return results
+
+
+# -- phase 5: the serving main path --------------------------------------------
+def serve_phase(torch):
+    from repro_torch.engine.engine import serve
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+    from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention
+    from repro_torch.launch import serve as serve_cli
+
+    args = serve_cli.build_parser().parse_args(["--full"])
+    t0 = time.perf_counter()
+    engine, sched, kv_pool, reqs = serve_cli.build(args)   # binds + warms up
+    log(f"  engine built and warmed up in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.bucket_rounds.clear()
+    engine.enqueue_ms.clear()
+    paged_decode_attention.launches = 0
+    paged_prefill_attention.launches = 0
+    res = serve(reqs, sched, engine, kv_pool=kv_pool)
+    torch.cuda.synchronize()
+    launches = {"paged_decode_attention": paged_decode_attention.launches,
+                "paged_prefill_attention": paged_prefill_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    cfg = engine.model_cfg
+    toks = check_outputs(res, reqs, cfg.vocab_size)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched on the main path: "
+                             f"{launches}")
+    decode_rounds = engine.bucket_rounds.get(1, 0)
+    mixed_rounds = sum(n for c, n in engine.bucket_rounds.items() if c > 1)
+    if launches["paged_decode_attention"] != cfg.n_layers * decode_rounds:
+        raise AssertionError(f"decode launches {launches} != {cfg.n_layers} x "
+                             f"{decode_rounds} pure-decode rounds")
+    if launches["paged_prefill_attention"] != cfg.n_layers * mixed_rounds:
+        raise AssertionError(f"prefill launches {launches} != {cfg.n_layers} "
+                             f"x {mixed_rounds} rounds with C > 1")
+    rep = res.report
+    out_tok_s = len(toks) / res.wall_s
+    bubble = statistics.mean(res.host_bubble_ms) if res.host_bubble_ms else 0.0
+    enqueue = statistics.mean(engine.enqueue_ms)
+    log(f"  served {rep.n_finished}/{rep.n_total} requests, {len(toks)} output "
+        f"tokens in {res.wall_s:.3f} s over {res.rounds} rounds "
+        f"(by chunk bucket: {dict(sorted(engine.bucket_rounds.items()))})")
+    log(f"  output tok/s {out_tok_s:.1f}  mean TTFT {rep.ttft['mean'] * 1e3:.2f} ms"
+        f"  P99 E2E {rep.e2e['p99'] * 1e3:.2f} ms  mean bubble_ms {bubble:.3f}"
+        f"  mean enqueue_ms {enqueue:.3f}"
+        f"  peak memory {peak / 2**30:.3f} GiB")
+    log(f"  kernel launches on the main path: {launches}")
+    return engine, launches, [res.outputs[r.req_id] for r in reqs]
+
+
+# -- phases 6-8: swap, the INT8 host tier, disagg ------------------------------
+SWAP_KV_BLOCKS = 48     # 16 slots of up to 19 pages each: the pressure bites
+
+
+def check_outputs(res, reqs, vocab_size):
+    """Every request finished with its full token count, every token in the
+    vocabulary; returns all output tokens."""
+    bad = [r.req_id for r in reqs
+           if len(res.outputs.get(r.req_id, [])) != r.max_new_tokens]
+    if res.report.n_finished != len(reqs) or bad:
+        raise AssertionError(f"{res.report.n_finished}/{len(reqs)} finished; "
+                             f"short outputs: {bad}")
+    toks = [t for r in reqs for t in res.outputs[r.req_id]]
+    if not all(0 <= t < vocab_size for t in toks):
+        raise AssertionError("a sampled token is outside the vocabulary")
+    return toks
+
+
+def kernel_fns():
+    from repro_torch.kernels import swap as sw
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+    from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention
+    fns = {n: getattr(sw, n) for n in SWAP_KERNELS}
+    fns["paged_decode_attention"] = paged_decode_attention
+    fns["paged_prefill_attention"] = paged_prefill_attention
+    return fns
+
+
+def zero_launches() -> None:
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {n: fn.launches for n, fn in kernel_fns().items()}
+
+
+def note_tokens(reqs, outputs, baseline) -> None:
+    same = sum(outputs[r.req_id] == b for r, b in zip(reqs, baseline))
+    log(f"  greedy outputs equal to the recompute serve phase's: {same} of "
+        f"{len(reqs)} requests (printed, not gated: bf16)")
+
+
+def swap_serve_phase(torch, host_kv_dtype, baseline):
+    from repro_torch.engine.engine import serve
+    from repro_torch.launch import serve as serve_cli
+
+    args = serve_cli.build_parser().parse_args(
+        ["--full", "--preemption-mode", "swap", "--kv-blocks",
+         str(SWAP_KV_BLOCKS)])
+    engine, sched, kv_pool, reqs = serve_cli.build(
+        args, host_kv_dtype=host_kv_dtype)               # binds + warms up
+    torch.cuda.synchronize()
+    zero_launches()
+    res = serve(reqs, sched, engine, kv_pool=kv_pool)
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    toks = check_outputs(res, reqs, engine.model_cfg.vocab_size)
+    st = sched.stats
+    require(st.swap_preemptions > 0, "no swap preemption happened")
+    require(st.swap_restores == st.swap_preemptions,
+            f"{st.swap_restores} restores != {st.swap_preemptions} swap-outs")
+    used, idle = SWAP_KERNELS[:2], SWAP_KERNELS[2:]
+    if host_kv_dtype == "int8":
+        used, idle = idle, used
+    require(launches[used[0]] == 2 * st.swap_preemptions,
+            f"{used[0]} launches {launches} != 2 x {st.swap_preemptions} "
+            "swap-outs (K and V)")
+    require(launches[used[1]] == 2 * st.swap_restores,
+            f"{used[1]} launches {launches} != 2 x {st.swap_restores} restores")
+    require(launches[idle[0]] == launches[idle[1]] == 0,
+            f"the other swap pair ran: {launches}")
+    require(min(launches["paged_decode_attention"],
+                launches["paged_prefill_attention"]) > 0,
+            f"an attention kernel did not run: {launches}")
+    require(not kv_pool.swapped_requests(), "a request is still staged")
+    kv_pool.check_invariants()
+    log(f"  served {res.report.n_finished}/{res.report.n_total} requests, "
+        f"{len(toks)} tokens in {res.wall_s:.3f} s over {res.rounds} rounds; "
+        f"{st.preemptions} preemptions, {st.swap_preemptions} swapped out "
+        f"({st.swap_restores} restored), output tok/s "
+        f"{len(toks) / res.wall_s:.1f}")
+    log(f"  kernel launches: {launches}")
+    note_tokens(reqs, res.outputs, baseline)
+    return launches
+
+
+def disagg_phase(torch, baseline):
+    from repro_torch.disagg import serve_disagg
+    from repro_torch.launch import serve as serve_cli
+
+    args = serve_cli.build_parser().parse_args(["--full", "--disagg"])
+    router, reqs = serve_cli.build_fleet(args)
+    require(len(router.prefill) == len(router.decode) == 1,
+            "expected 1 prefill and 1 decode replica")
+    require(router.prefill[0].engine.params is router.decode[0].engine.params,
+            "the replicas do not share one weight set")
+    torch.cuda.synchronize()
+    zero_launches()
+    res = serve_disagg(reqs, router)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    router.check_invariants()
+
+    toks = check_outputs(res, reqs, router.prefill[0].engine.model_cfg.vocab_size)
+    require(res.handoffs == len(reqs) and res.colocated == 0
+            and all(r.handoffs == 1 for r in reqs),
+            f"handoffs {res.handoffs} colocated {res.colocated} of {len(reqs)}")
+    decode_prefill = sum(rs.sched.stats.scheduled_prefill_tokens
+                         for rs in router.decode)
+    require(decode_prefill == 0,
+            f"the decode pool prefilled {decode_prefill} tokens")
+    swapped = sum(rs.sched.stats.swap_preemptions for rs in router.replicas)
+    restores = sum(rs.sched.stats.swap_restores for rs in router.replicas)
+    require(restores == res.handoffs + swapped,
+            f"{restores} restores != {res.handoffs} imports + {swapped} swap-outs")
+    require(launches["swap_gather_pages"] == 2 * (res.handoffs + swapped),
+            f"gather launches {launches} != 2 x ({res.handoffs} exports + "
+            f"{swapped} swap-outs)")
+    require(launches["swap_scatter_pages"] == 2 * restores,
+            f"scatter launches {launches} != 2 x {restores} imports")
+    log(f"  served {res.report.n_finished}/{res.report.n_total} requests, "
+        f"{len(toks)} tokens in {res.wall_s:.3f} s over {res.rounds} rounds "
+        f"on {len(router.replicas)} replicas; {res.handoffs} handoffs "
+        f"({res.bytes_moved / 2**20:.1f} MiB), decode-pool prefill tokens "
+        f"{decode_prefill}, output tok/s {len(toks) / res.wall_s:.1f}")
+    log(f"  kernel launches: {launches}")
+    note_tokens(reqs, res.outputs, baseline)
+    return launches
+
+
+# -- phase 9: full-width model, kernels on the card vs plain on the CPU --------
 def reference_phase(torch, model_cfg, params):
     from repro_torch.models.model import build_model
 
@@ -332,62 +787,6 @@ def reference_phase(torch, model_cfg, params):
             f"{wn.tolist()} (bf16 near-tie)")
 
 
-# -- phase 5: the serving main path --------------------------------------------
-def serve_phase(torch):
-    from repro_torch.engine.engine import serve
-    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
-    from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention
-    from repro_torch.launch import serve as serve_cli
-
-    args = serve_cli.build_parser().parse_args(["--full"])
-    t0 = time.perf_counter()
-    engine, sched, kv_pool, reqs = serve_cli.build(args)   # binds + warms up
-    log(f"  engine built and warmed up in {time.perf_counter() - t0:.2f} s")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    engine.bucket_rounds.clear()
-    engine.enqueue_ms.clear()
-    paged_decode_attention.launches = 0
-    paged_prefill_attention.launches = 0
-    res = serve(reqs, sched, engine, kv_pool=kv_pool)
-    torch.cuda.synchronize()
-    launches = {"paged_decode_attention": paged_decode_attention.launches,
-                "paged_prefill_attention": paged_prefill_attention.launches}
-    peak = torch.cuda.max_memory_allocated()
-
-    cfg = engine.model_cfg
-    bad = [r.req_id for r in reqs
-           if len(res.outputs.get(r.req_id, [])) != r.max_new_tokens]
-    if res.report.n_finished != len(reqs) or bad:
-        raise AssertionError(f"{res.report.n_finished}/{len(reqs)} finished; "
-                             f"short outputs: {bad}")
-    toks = [t for r in reqs for t in res.outputs[r.req_id]]
-    if not all(0 <= t < cfg.vocab_size for t in toks):
-        raise AssertionError("a sampled token is outside the vocabulary")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched on the main path: "
-                             f"{launches}")
-    decode_rounds = engine.bucket_rounds.get(1, 0)
-    mixed_rounds = sum(n for c, n in engine.bucket_rounds.items() if c > 1)
-    if launches["paged_decode_attention"] != cfg.n_layers * decode_rounds:
-        raise AssertionError(f"decode launches {launches} != {cfg.n_layers} x "
-                             f"{decode_rounds} pure-decode rounds")
-    if launches["paged_prefill_attention"] != cfg.n_layers * mixed_rounds:
-        raise AssertionError(f"prefill launches {launches} != {cfg.n_layers} "
-                             f"x {mixed_rounds} rounds with C > 1")
-    rep = res.report
-    out_tok_s = len(toks) / res.wall_s
-    bubble = statistics.mean(res.host_bubble_ms) if res.host_bubble_ms else 0.0
-    enqueue = statistics.mean(engine.enqueue_ms)
-    log(f"  served {rep.n_finished}/{rep.n_total} requests, {len(toks)} output "
-        f"tokens in {res.wall_s:.3f} s over {res.rounds} rounds "
-        f"(by chunk bucket: {dict(sorted(engine.bucket_rounds.items()))})")
-    log(f"  output tok/s {out_tok_s:.1f}  mean TTFT {rep.ttft['mean'] * 1e3:.2f} ms"
-        f"  P99 E2E {rep.e2e['p99'] * 1e3:.2f} ms  mean bubble_ms {bubble:.3f}"
-        f"  mean enqueue_ms {enqueue:.3f}"
-        f"  peak memory {peak / 2**30:.3f} GiB")
-    log(f"  kernel launches on the main path: {launches}")
-    return engine, launches
 
 
 def main() -> int:
@@ -429,23 +828,48 @@ def main() -> int:
     kern = kernel_phase(torch)
     torch.cuda.empty_cache()
 
+    log("== swap kernels vs plain versions")
+    swap_kern = swap_kernel_phase(torch)
+    torch.cuda.empty_cache()
+
     log("== serve (python -m repro_torch.launch.serve --full)")
-    engine, launches = serve_phase(torch)
+    engine, launches, baseline = serve_phase(torch)
+
+    log(f"== serve, swap (--full --preemption-mode swap --kv-blocks "
+        f"{SWAP_KV_BLOCKS})")
+    swap_launches = swap_serve_phase(torch, "auto", baseline)
+    torch.cuda.empty_cache()
+    log("== serve, INT8 host tier (the same, pool_for_model(..., "
+        "host_kv_dtype='int8'))")
+    q8_launches = swap_serve_phase(torch, "int8", baseline)
+    torch.cuda.empty_cache()
+    log("== serve, disagg (--full --disagg: 1 prefill + 1 decode replica)")
+    disagg_phase(torch, baseline)
+    torch.cuda.empty_cache()
 
     log("== full-width model: kernels on the card vs plain on the CPU")
     reference_phase(torch, engine.model_cfg, engine.params)
 
     sources = {
-        "paged_decode_attention": ("src/repro/kernels/paged_decode_attention.py:249"),
-        "paged_prefill_attention": ("src/repro/kernels/paged_prefill_attention.py:213"),
+        "paged_decode_attention": "src/repro/kernels/paged_decode_attention.py:249",
+        "paged_prefill_attention": "src/repro/kernels/paged_prefill_attention.py:213",
+        "swap_gather_pages": "src/repro/kernels/swap.py:84",
+        "swap_scatter_pages": "src/repro/kernels/swap.py:113",
+        "swap_gather_pages_q8": "src/repro/kernels/swap.py:179",
+        "swap_scatter_pages_q8": "src/repro/kernels/swap.py:221",
     }
+    # each kernel's launches come from the serve phase of its own path:
+    # attention from the recompute main path, the fp swap pair from the swap
+    # phase, the INT8 pair from the INT8 phase
+    path_launches = {**swap_launches, **{n: q8_launches[n]
+                                         for n in SWAP_KERNELS[2:]}, **launches}
     kernels = []
-    for name, rep in kern.items():
+    for name, rep in {**kern, **swap_kern}.items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": sources[name],
-            "launches": launches[name],
+            "launches": path_launches[name],
             **{k: rep[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms")},
         })

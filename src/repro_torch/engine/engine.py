@@ -24,13 +24,18 @@ storage (vLLM layout):
     come back through an async copy into a pinned buffer owned by the round
     and are drained one round late.  Greedy outputs are identical to the
     synchronous engine (``pipelined=False``).
+  * SWAP preemption (``preemption_mode="swap"``) and disaggregated
+    handoffs move a request's pages through the swap kernels: a gather into
+    one staging tensor and an async copy into pinned host memory at
+    swap-out, landed one round late by ``finalize_swaps``; an upload and a
+    scatter into fresh pages at swap-in.  With ``host_kv_dtype="int8"`` on
+    the pool the staged pages are INT8 with per-page-per-head scales.
   * The scheduler under test is the real ``repro_torch.core`` code (a copy
     of ``repro.core``); latencies are wall-clock.
 
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-queue item): ``paged_kv=False``, ``kv_layout="fused"``,
-``preemption_mode="swap"`` and the swap hooks, ``nan_guard`` and the
-poison/scrub chaos hooks.
+queue item): ``paged_kv=False``, ``kv_layout="fused"``, ``nan_guard`` and
+the poison/scrub chaos hooks.
 """
 from __future__ import annotations
 
@@ -52,6 +57,10 @@ from repro_torch.engine.metrics import (
     summarize_memory, summarize_robustness, summarize_slo,
 )
 from repro_torch.engine.sampler import SamplerConfig, sample_tokens
+from repro_torch.kernels.ops import (
+    gather_swap_pages, gather_swap_pages_q8, scatter_swap_pages,
+    scatter_swap_pages_q8,
+)
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.robustness import FailoverStats, ReplicaHealth
@@ -78,7 +87,10 @@ class EngineConfig:
     kv_layout: str = "split"          # "fused" is not ported yet
     buffering_depth: int = 1
     pipelined: bool = True            # overlap schedule(N+1) with execute(N)
-    preemption_mode: str = "recompute"   # "swap" is not ported yet
+    # preemption mode: "recompute" discards a victim's KV (re-prefill from
+    # scratch, the A/B default); "swap" stages it host-side and restores it
+    # on re-schedule -- the scheduler picks per victim via the cost model
+    preemption_mode: str = "recompute"
     nan_guard: bool = False              # True is not ported yet
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
     seed: int = 0
@@ -95,32 +107,62 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-class TokenReadback:
-    """The sampled ids of one dispatched round on their way to the host.
+def _pow2_bucket(n: int) -> int:
+    """Smallest power of two >= n: swap page-id lists are padded to these
+    buckets with the sink page, as the JAX engine pads them."""
+    k = 1
+    while k < n:
+        k <<= 1
+    return k
 
-    On a card: an async device->host copy into a pinned buffer owned by this
-    round (so a later round never overwrites it) and a CUDA event recorded
-    after it; ``is_ready()`` polls the event.  On the CPU the ids are already
-    host-side."""
 
-    def __init__(self, toks: torch.Tensor):
-        if toks.is_cuda:
-            self._host = torch.empty(toks.shape, dtype=toks.dtype,
-                                     pin_memory=True)
-            self._host.copy_(toks, non_blocking=True)
-            self._event = torch.cuda.Event()
+def _tree_map(fn, x):
+    """``fn`` over a tensor or array, or over a (nested) tuple of them,
+    keeping the structure: a swap payload is a tuple of staged arrays, one
+    per cache tensor, or of ``(q, scales)`` pairs."""
+    if isinstance(x, tuple):
+        return tuple(_tree_map(fn, a) for a in x)
+    return fn(x)
+
+
+def _host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy view of a host tensor; bf16, which numpy lacks, as its raw
+    int16 bits (``torch.from_numpy(a).view(torch.bfloat16)`` undoes it)."""
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+class HostCopy:
+    """Tensors on their way to the host: one round's sampled ids, or a
+    swap-out's staged pages (a tuple, see ``_tree_map``).
+
+    On a card: async device->host copies into pinned buffers owned by this
+    object (so later work never overwrites them) and a CUDA event recorded
+    after the last one; ``is_ready()`` polls the event.  On the CPU the
+    tensors are already host-side."""
+
+    def __init__(self, tensors):
+        self._event = None
+        self._host = _tree_map(self._start, tensors)
+        if self._event is not None:
             self._event.record()
-        else:
-            self._host = toks
-            self._event = None
+
+    def _start(self, t: torch.Tensor) -> torch.Tensor:
+        if not t.is_cuda:
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        self._event = self._event or torch.cuda.Event()
+        return host
 
     def is_ready(self) -> bool:
         return self._event is None or self._event.query()
 
-    def numpy(self) -> np.ndarray:
+    def numpy(self):
+        """Wait for the copies; numpy views of the host tensors, in the
+        structure given."""
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        return _tree_map(_host_numpy, self._host)
 
 
 @dataclass
@@ -132,7 +174,7 @@ class InflightRound:
     chunks).  ``out_index`` records, per request, which position of
     ``output_tokens`` received this round's placeholder (filled by the serve
     loop after ``on_batch_done``); ``drain`` patches the real ids there."""
-    toks: TokenReadback
+    toks: HostCopy
     sampled: List[Tuple[Request, int]]
     t_dispatch: float
     out_index: Dict[int, int] = field(default_factory=dict)
@@ -155,9 +197,6 @@ class TorchEngine:
             raise _not_ported("paged_kv=False (dense KV slots)", 9)
         if self.cfg.kv_layout != "split":
             raise _not_ported(f"kv_layout={self.cfg.kv_layout!r}", 6)
-        if self.cfg.preemption_mode != "recompute":
-            raise _not_ported(
-                f"preemption_mode={self.cfg.preemption_mode!r}", 5)
         if self.cfg.nan_guard:
             raise _not_ported("nan_guard=True", 8)
         assert self.cfg.buffering_depth >= 1, self.cfg.buffering_depth
@@ -186,6 +225,15 @@ class TorchEngine:
         self.last_nonfinite: set = set()
         # rounds dispatched per chunk bucket (C == 1: pure-decode rounds)
         self.bucket_rounds: Dict[int, int] = {}
+        # swap-outs whose host copy has not been landed yet -- (staging
+        # record, HostCopy of the staged pages); finalize_swaps()
+        # attaches the payload to the record DIRECTLY (not through the
+        # pool), so a record the disagg router prefetched into the handoff
+        # store or a destination pool still finalizes
+        self._pending_swaps: List[Tuple[object, HostCopy]] = []
+        # pinned payloads uploaded without a host copy, each with the event
+        # behind its copy (see _upload)
+        self._uploading: List[Tuple[torch.Tensor, object]] = []
 
         self.kv_pool: Optional[KVBlockPool] = kv_pool
         # warmup() flips this: binding a pool afterwards reallocates the page
@@ -242,6 +290,18 @@ class TorchEngine:
         src = torch.from_numpy(np.ascontiguousarray(arr))
         if self.device.type != "cuda":
             return src.clone()
+        if src.is_pinned():
+            # a payload ``finalize_swaps`` landed: already pinned, so it
+            # goes up without a host copy.  Its buffer returns to the host
+            # allocator with no stream event when numpy drops it, so hold
+            # it until this copy has completed.
+            out = src.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            self._uploading = [(t, e) for t, e in self._uploading
+                               if not e.query()]
+            self._uploading.append((src, done))
+            return out
         pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
         pinned.copy_(src)
         return pinned.to(self.device, non_blocking=True)
@@ -279,6 +339,11 @@ class TorchEngine:
                 "pool the warm-up ran against -- bind the external pool "
                 "FIRST, then call warmup()"
             )
+        if kv_pool.cfg.host_kv_dtype == "int8" and not self.cfg.paged_kv:
+            raise RuntimeError(
+                "host_kv_dtype='int8' requires paged_kv: the quantized swap "
+                "kernels are page-shaped"
+            )
         self.kv_pool = kv_pool
         self._owns_pool = False
         self._build_state()
@@ -288,9 +353,11 @@ class TorchEngine:
         latencies: the first round of each shape builds the CUDA kernels
         (nvcc, at first use), loads cuBLAS and settles the caching
         allocator.  The dummy rounds write only into the sink page, which is
-        never read back, and ``lens`` is reset afterwards."""
-        if include_swap:
-            raise _not_ported("swap warm-up (KV export/import)", 5)
+        never read back, and ``lens`` is reset afterwards.  When this engine
+        can swap (``preemption_mode="swap"``) or the caller says it will
+        export/import KV (``include_swap=True``, the disagg handoff path,
+        which rides the swap kernels whatever the preemption mode), the swap
+        kernels run once too."""
         B = self.cfg.n_slots
         off = torch.zeros((B,), dtype=torch.bool, device=self.device)
         chunk_lens = torch.zeros((B,), dtype=torch.int32, device=self.device)
@@ -299,9 +366,30 @@ class TorchEngine:
             tokens = torch.ones((B, C), dtype=torch.int32, device=self.device)
             self._step(tokens, chunk_lens, off, off)
         self.lens.zero_()
+        if include_swap is None:
+            include_swap = self.cfg.preemption_mode == "swap"
+        if include_swap:
+            self._prewarm_swap_kernels()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.warmed = True
+
+    def _prewarm_swap_kernels(self) -> None:
+        """Launch the swap gather and scatter the engine's swaps use once
+        each, so the first real preemption -- or disagg handoff export or
+        import -- does not load their libraries inside a serving round.  The
+        JAX engine compiles one shape per page-id bucket here; a CUDA kernel
+        takes every bucket without recompiling, so one sink-only id is
+        enough: the gather reads the sink page and the scatter writes it
+        back."""
+        ids = torch.full((1,), self._sink, dtype=torch.int32,
+                         device=self.device)
+        for cache in self.cache.values():
+            if self._host_quantized():
+                q, scales = gather_swap_pages_q8(cache, ids)
+                scatter_swap_pages_q8(cache, ids, q, scales)
+            else:
+                scatter_swap_pages(cache, ids, gather_swap_pages(cache, ids))
 
     # -- slot management -------------------------------------------------------
     def acquire_slot(self, req: Request) -> bool:
@@ -343,25 +431,153 @@ class TorchEngine:
     def has_capacity(self) -> bool:
         return len(self.free_slots) > 0
 
-    # -- swap preemption and chaos hooks: not in this slice --------------------
+    # -- swap-out preemption (device<->host KV migration) ----------------------
+    def _host_quantized(self) -> bool:
+        """True when staged host pages are INT8 (pool ``host_kv_dtype``)."""
+        return (self.kv_pool is not None
+                and self.kv_pool.cfg.host_kv_dtype == "int8")
+
+    def _swap_page_ids(self, req_id: int) -> Tuple[np.ndarray, int]:
+        """The request's physical page ids, right-padded with the sink page
+        to a power-of-two bucket (the staged payload's page count, as in the
+        JAX engine).  Returns (padded ids, real count)."""
+        table = self.kv_pool.tables.get(req_id, [])
+        n = len(table)
+        k = _pow2_bucket(max(n, 1))
+        ids = np.full((k,), self._sink, np.int32)
+        ids[:n] = table
+        return ids, n
+
     def swap_out(self, req: Request) -> None:
-        raise _not_ported("swap preemption (swap_out)", 5)
+        """Scheduler swapper hook: gather the victim's pages into one
+        contiguous staging tensor per cache tensor (INT8 codes and scales
+        under ``host_kv_dtype="int8"``), start their async copy into pinned
+        host memory, move the pool accounting to a SWAPPING staging record,
+        and release the slot.  The gather runs on the current stream, after
+        the round already enqueued there.  The payload becomes restorable
+        only when ``finalize_swaps`` lands the copy -- the same
+        one-round-late visibility the token readback has, so a
+        mid-pipeline victim is never restored (or re-bound) in the round
+        that is still copying its pages out."""
+        pool = self.kv_pool
+        assert req.req_id in self.slot_of, f"swap_out of unbound req {req.req_id}"
+        ids, _n = self._swap_page_ids(req.req_id)
+        d_ids = self._upload(ids)
+        gather = (gather_swap_pages_q8 if self._host_quantized()
+                  else gather_swap_pages)
+        copy = HostCopy(tuple(gather(c, d_ids) for c in self.cache.values()))
+        # keep the RECORD, not just the id: finalize must find it wherever
+        # the disagg router's prefetch may have moved it by then
+        rec = pool.swap_out(req.req_id)        # state: SWAPPING
+        self._pending_swaps.append((rec, copy))
+        self.release(req)
+
+    def finalize_swaps(self) -> None:
+        """Land pending swap-out copies: wait for each staged tensor to be
+        host-side (the copies were enqueued before the current round's step,
+        so the wait is bounded) and attach numpy views of the pinned buffers
+        to the staging records, which become SWAPPED_OUT.  The payload
+        attaches to the record object itself -- under handoff PREFETCH the
+        record may already sit in the ``KVHandoffStore`` or a destination
+        pool's staging store.  Called from ``drain`` and by the serve loop
+        when no round is in flight to piggyback on."""
+        for rec, copy in self._pending_swaps:
+            KVBlockPool.finalize_record(rec, copy.numpy())
+        self._pending_swaps.clear()
+
+    def has_pending_swaps(self) -> bool:
+        return bool(self._pending_swaps)
+
+    def _check_payload(self, req: Request, payload) -> int:
+        """The staged page count of a payload that fits this engine's cache
+        layout (one entry per cache tensor)."""
+        assert payload is not None, f"restore of req {req.req_id} without payload"
+        assert len(payload) == len(self.cache), (
+            f"req {req.req_id}: payload arity {len(payload)} != cache layout "
+            f"{tuple(self.cache)} -- swapped under a different kv_layout?"
+        )
+        first = payload[0][0] if isinstance(payload[0], tuple) else payload[0]
+        return first.shape[1]
+
+    def _scatter_payload(self, ids: np.ndarray, payload) -> None:
+        """Upload each cache tensor's staged pages (through fresh pinned
+        buffers: a pageable copy would block the host until the stream
+        drains) and scatter them into pages ``ids``: a ``(q, scales)`` pair
+        through the dequantizing scatter, a plain array through the fp
+        one."""
+        d_ids = self._upload(ids)
+        for cache, staged in zip(self.cache.values(), payload):
+            if isinstance(staged, tuple):
+                q, scales = staged
+                scatter_swap_pages_q8(cache, d_ids, self._upload(q),
+                                      self._upload(scales))
+            else:
+                scatter_swap_pages(cache, d_ids,
+                                   self._upload(staged).view(cache.dtype))
+
+    def _restored(self, req: Request, slot: int) -> None:
+        """After a scatter: the slot's table changed wholesale (force a full
+        row rewrite) and its length is the pool's stored length."""
+        self._bt_host[slot, :] = self._sink
+        self._bt_len[slot] = 0
+        self._bt_dirty.add(slot)
+        self.lens[slot] = self.kv_pool.lens.get(req.req_id, 0)
 
     def swap_in(self, req: Request, payload) -> None:
-        raise _not_ported("swap preemption (swap_in)", 5)
-
-    def swap_in_tail(self, req: Request, payload, tail_start_blocks: int) -> None:
-        raise _not_ported("swap preemption (swap_in_tail)", 5)
+        """Scheduler restorer hook, called right after ``pool.swap_in``
+        rebuilt the request's table from fresh blocks: scatter the staged
+        K/V into the new physical pages and restore the device-side
+        length."""
+        slot = self.slot_of.get(req.req_id)
+        assert slot is not None, f"swap_in of unbound req {req.req_id}"
+        staged_pages = self._check_payload(req, payload)
+        ids, n = self._swap_page_ids(req.req_id)
+        assert n and ids.shape[0] == staged_pages, (
+            f"req {req.req_id}: restore bucket {ids.shape[0]} != staged "
+            f"{staged_pages}"
+        )
+        self._scatter_payload(ids, payload)
+        self._restored(req, slot)
 
     @staticmethod
     def slice_swap_payload(payload, tail_start_blocks: int, n_blocks: int):
-        raise _not_ported("swap preemption (slice_swap_payload)", 5)
+        """Trim a host-staged payload to its tail pages (partial swap-in):
+        keep pages ``[tail_start_blocks, n_blocks)`` of every staged array
+        -- page axis 1, real pages only; the pow2 padding is rebuilt for the
+        tail's own scatter bucket (padded entries target the sink page, so
+        their content is never read).  Returns fresh copies: the prefix
+        pages' memory is released once the original payload drops."""
+        k = n_blocks - tail_start_blocks
+        kpad = _pow2_bucket(max(k, 1))
 
-    def has_pending_swaps(self) -> bool:
-        return False
+        def trim(a):
+            a = np.asarray(a)
+            out = np.zeros(a.shape[:1] + (kpad,) + a.shape[2:], a.dtype)
+            out[:, :k] = a[:, tail_start_blocks:n_blocks]
+            return out
 
-    def finalize_swaps(self) -> None:
-        """No swap copies exist in this slice: nothing to land."""
+        return _tree_map(trim, payload)
+
+    def swap_in_tail(self, req: Request, payload,
+                     tail_start_blocks: int) -> None:
+        """Scheduler tail-restorer hook, called right after
+        ``pool.swap_in_tail`` appended fresh blocks for the staged tail: the
+        request re-prefilled blocks ``[0, tail_start_blocks)`` normally, so
+        only the tail pages are scattered and the device length jumps to the
+        record's full stored length."""
+        slot = self.slot_of.get(req.req_id)
+        assert slot is not None, f"swap_in_tail of unbound req {req.req_id}"
+        staged_pages = self._check_payload(req, payload)
+        tail = self.kv_pool.tables.get(req.req_id, [])[tail_start_blocks:]
+        assert tail, f"req {req.req_id}: empty tail restore"
+        kpad = _pow2_bucket(len(tail))
+        ids = np.full((kpad,), self._sink, np.int32)
+        ids[: len(tail)] = tail
+        assert kpad == staged_pages, (
+            f"req {req.req_id}: tail bucket {kpad} != staged {staged_pages}"
+        )
+        self._scatter_payload(ids, payload)
+        self._restored(req, slot)
 
     def poison_kv(self, req: Request) -> None:
         raise _not_ported("the nan_logits chaos hook (poison_kv)", 8)
@@ -477,7 +693,7 @@ class TorchEngine:
         t_dispatch = time.perf_counter()
         if self._t_ready is not None:
             self.bubble_ms.append((t_dispatch - self._t_ready) * 1e3)
-        toks = TokenReadback(
+        toks = HostCopy(
             self._step(d_tokens, d_chunk_lens, d_use_last, d_sample_mask))
         self.enqueue_ms.append((time.perf_counter() - t_dispatch) * 1e3)
         self.bucket_rounds[C] = self.bucket_rounds.get(C, 0) + 1
@@ -495,6 +711,10 @@ class TorchEngine:
         self._t_ready = time.perf_counter()
         wall_ms = (self._t_ready - inflight.t_dispatch) * 1e3
         self.last_nonfinite = inflight.nonfinite
+        # swap-out staging retires on the same one-round-late path: gathers
+        # enqueued before this round's step are host-side by now (or the
+        # event wait bounds it)
+        self.finalize_swaps()
         for req, slot in inflight.sampled:
             tok = int(toks[slot])
             req.next_token = tok

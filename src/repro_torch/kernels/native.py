@@ -26,7 +26,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("paged_decode_attention", "paged_prefill_attention")
+KERNELS = ("paged_decode_attention", "paged_prefill_attention",
+           "swap_gather_pages", "swap_scatter_pages",
+           "swap_gather_pages_q8", "swap_scatter_pages_q8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,5 +1,6 @@
-"""Public attention entry points the model calls: the port of the two paged
-split-layout wrappers of ``repro/kernels/ops.py:60-108``.
+"""Public kernel entry points the model and the engine call: the port of the
+two paged split-layout attention wrappers of ``repro/kernels/ops.py:60-108``
+and of the four swap wrappers of ``:137-169``.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the CUDA
 kernel, or the call raises.  ``pages_per_tile`` and ``buffering_depth`` are
@@ -10,6 +11,10 @@ from __future__ import annotations
 
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention
+from repro_torch.kernels.swap import (
+    swap_gather_pages, swap_gather_pages_q8, swap_scatter_pages,
+    swap_scatter_pages_q8,
+)
 
 
 def paged_prefill_chunk_attention(q, k_pages, v_pages, block_tables, kv_lens,
@@ -26,3 +31,28 @@ def paged_flash_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
                                  buffering_depth: int = 1):
     """(B, Hq, hd) single-token decode vs a paged pool + block tables."""
     return paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens)
+
+
+def gather_swap_pages(pages, ids):
+    """Collect scattered physical pages ``pages[:, ids]`` into one contiguous
+    staging tensor (swap-out: the engine host-copies the result as one dense
+    copy)."""
+    return swap_gather_pages(pages, ids)
+
+
+def scatter_swap_pages(pages, ids, staged):
+    """Write a staging tensor back into freshly allocated physical pages
+    (swap-in restore; ``pages`` is updated in place)."""
+    return swap_scatter_pages(pages, ids, staged)
+
+
+def gather_swap_pages_q8(pages, ids):
+    """Gather + INT8-quantize staging pages in one fused pass (host tier with
+    ``host_kv_dtype="int8"``): returns ``(q, scales)``."""
+    return swap_gather_pages_q8(pages, ids)
+
+
+def scatter_swap_pages_q8(pages, ids, q_staged, scales):
+    """Dequantize + scatter INT8 staging pages back into physical pages
+    (``pages`` updated in place)."""
+    return swap_scatter_pages_q8(pages, ids, q_staged, scales)

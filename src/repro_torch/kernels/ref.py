@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the paged attention kernels (exact f32 math, no
-tiling): the port of ``repro/kernels/ref.py:14-106``.
+tiling) and of the INT8 host-page math: the port of
+``repro/kernels/ref.py:14-106`` and ``:143-167``.
 
 They are the CPU path of the engine and the references the CUDA kernels are
 held against on the card.  Like the jnp oracles, a row with no valid key
@@ -93,3 +94,31 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, kv_lens):
         q, gather_pages(k_pages, block_tables),
         gather_pages(v_pages, block_tables), kv_lens,
     )
+
+
+def quantize_pages(pages):
+    """INT8-quantize staged KV pages with per-page-per-head absmax scales.
+
+    ``pages``: ``(L, n_pages, page_size, H, hd)`` (H is ``Hkv`` for the split
+    layout, ``2*Hkv`` for the fused one).  Returns ``(q, scales)``: ``q`` int8
+    of the same shape and ``scales`` f32 ``(L, n_pages, 1, H, 1)``, so that
+    ``q * scales`` broadcasts back.  Symmetric, scale ``absmax / 127`` per
+    (layer, page, head), round half to even, clipped to +-127; an all-zero
+    head quantizes to zeros with scale 0.
+
+    Both divisions are IEEE divisions by a tensor on ``pages``' device: a
+    Python-scalar divisor would let PyTorch's CUDA path multiply by its
+    reciprocal instead, one ulp away from the CUDA kernel's ``amax / 127.f``.
+    """
+    x = pages.float()
+    amax = x.abs().amax(dim=(2, 4), keepdim=True)
+    scales = amax / torch.full((), 127.0, device=x.device)
+    safe = torch.where(scales > 0, scales, torch.ones_like(scales))
+    q = torch.clamp(torch.round(x / safe), -127, 127).to(torch.int8)
+    return q, scales
+
+
+def dequantize_pages(q, scales, dtype):
+    """Inverse of ``quantize_pages``: ``q * scales`` in f32, cast to the pool
+    dtype."""
+    return (q.float() * scales).to(dtype)

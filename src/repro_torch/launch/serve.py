@@ -1,16 +1,16 @@
 """Serving entry point of the port: ``python -m repro_torch.launch.serve --full``.
 
-The colocated path of ``repro/launch/serve.py`` on PyTorch: one replica, the
-chunked-prefill engine with paged KV (split layout), the pipelined loop,
-recompute preemption, greedy sampling and the real scheduler
-(Aging/FCFS/SJF, APC, optional SLO tier and fault tolerance), with the
-full-width model on one NVIDIA GPU (``--full``) or a tiny one.  Weights are
-the port's seeded random init.  ``--device cpu`` runs the plain PyTorch
-path.
+``repro/launch/serve.py`` on PyTorch: one replica, the chunked-prefill
+engine with paged KV (split layout), the pipelined loop, recompute or swap
+preemption (``--preemption-mode``), greedy sampling and the real scheduler
+(Aging/FCFS/SJF, APC, optional SLO tier and fault tolerance); or, with
+``--disagg``, a fleet of prefill and decode replicas with cross-replica KV
+handoff.  The model is full width on one NVIDIA GPU (``--full``) or tiny;
+weights are the port's seeded random init.  ``--device cpu`` runs the plain
+PyTorch path.
 
-Not ported yet, and refused with ``NotImplementedError``: ``--disagg``,
-``--lprs``, ``--dense-kv``, ``--kv-layout fused``, ``--preemption-mode
-swap`` and ``--nan-guard``.
+Not ported yet, and refused with ``NotImplementedError``: ``--lprs``,
+``--dense-kv``, ``--kv-layout fused`` and ``--nan-guard``.
 """
 from __future__ import annotations
 
@@ -33,9 +33,11 @@ from repro_torch.engine.workload import (
 )
 
 
-# the fault sites the colocated port fires: the handoff sites belong to the
-# disaggregated router and nan_logits to the NaN guard, neither ported yet
-PORTED_FAULT_SITES = ("replica_step_crash", "slow_round_ms")
+# the fault sites a colocated replica fires, and those the disaggregated
+# router adds; nan_logits belongs to the NaN guard, not ported yet
+COLOCATED_FAULT_SITES = ("replica_step_crash", "slow_round_ms")
+PORTED_FAULT_SITES = COLOCATED_FAULT_SITES + (
+    "handoff_drop", "handoff_stall", "swap_gather_fail", "host_oom")
 
 
 def robustness_from_args(args):
@@ -47,19 +49,23 @@ def robustness_from_args(args):
 
     injector = None
     if args.chaos_seed is not None:
+        # fuzz only the sites this path can fire
+        sites = PORTED_FAULT_SITES if args.disagg else COLOCATED_FAULT_SITES
         plan = FaultPlan.fuzz(args.chaos_seed, n_faults=args.chaos_faults,
-                              sites=PORTED_FAULT_SITES)
+                              sites=sites)
         injector = FaultInjector(plan)
-    return RobustnessConfig(max_retries=args.max_retries, injector=injector)
+    return RobustnessConfig(
+        max_retries=args.max_retries,
+        handoff_ttl_s=args.handoff_ttl if args.handoff_ttl > 0 else None,
+        injector=injector,
+    )
 
 
 def _refuse_unported(args) -> None:
     unported = [
-        (args.disagg, "--disagg (disaggregated serving)", 7),
         (args.lprs, "--lprs (the LPRS latency predictor)", 11),
         (args.dense_kv, "--dense-kv (dense KV slots)", 9),
         (args.kv_layout != "split", "--kv-layout fused", 6),
-        (args.preemption_mode != "recompute", "--preemption-mode swap", 5),
         (args.nan_guard, "--nan-guard", 8),
     ]
     for on, what, item in unported:
@@ -88,13 +94,31 @@ def build_parser() -> argparse.ArgumentParser:
                          "are identical under greedy sampling)")
     ap.add_argument("--kv-layout", default="split", choices=["split", "fused"])
     ap.add_argument("--preemption-mode", default="recompute",
-                    choices=["recompute", "swap"])
+                    choices=["recompute", "swap"],
+                    help="KV-pressure eviction strategy: 'recompute' discards "
+                         "the victim's KV and re-prefills it; 'swap' stages "
+                         "it host-side and restores it on re-schedule "
+                         "(chosen per victim by the transfer-vs-FLOPs cost "
+                         "model; greedy outputs are identical either way)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="enable the hash-based KV prefix cache (block-aligned "
                          "prompt reuse; hits skip the matched prefill compute)")
     ap.add_argument("--kv-blocks", type=int, default=2048,
                     help="KV pool size in blocks")
-    ap.add_argument("--disagg", action="store_true")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated serving: separate prefill and decode "
+                         "replica pools with cross-replica KV handoff "
+                         "(greedy outputs are identical to single-engine)")
+    ap.add_argument("--n-prefill", type=int, default=1,
+                    help="prefill-pool replicas (with --disagg)")
+    ap.add_argument("--n-decode", type=int, default=1,
+                    help="decode-pool replicas (with --disagg)")
+    ap.add_argument("--min-handoff-tokens", type=int, default=0,
+                    help="prompts with fewer resident KV tokens than this "
+                         "never migrate (with --disagg)")
+    ap.add_argument("--handoff-cost", action="store_true",
+                    help="price each handoff against colocated contention "
+                         "instead of always migrating (with --disagg)")
     ap.add_argument("--ttft-slo", type=float, default=0.0,
                     help="time-to-first-token SLO in seconds (0 = off); "
                          "either SLO enables the SLO tier")
@@ -104,11 +128,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fault-tolerant serving: crash unwinds and replica "
                          "health tracking")
     ap.add_argument("--max-retries", type=int, default=3)
+    ap.add_argument("--handoff-ttl", type=float, default=0.0,
+                    help="reap staged handoff records older than this many "
+                         "seconds (0 = no TTL; with --failover)")
     ap.add_argument("--nan-guard", action="store_true")
     ap.add_argument("--chaos-seed", type=int, default=None,
                     help="fuzz a deterministic fault plan from this seed "
-                         "over the replica crash and slow-round sites and "
-                         "inject it (implies --failover)")
+                         "over the sites this path fires (the replica crash "
+                         "and slow-round sites; with --disagg also the "
+                         "handoff, gather and host-memory sites) and inject "
+                         "it (implies --failover)")
     ap.add_argument("--chaos-faults", type=int, default=3)
     ap.add_argument("--full", action="store_true",
                     help="the architecture at its published width")
@@ -120,14 +149,33 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build(args):
+def _model_cfg(args):
+    return get_config(args.arch) if args.full else tiny_config(args.arch)
+
+
+def _engine_cfg(args) -> EngineConfig:
+    return EngineConfig(n_slots=16, max_context=512,
+                        pipelined=not args.sync_engine,
+                        preemption_mode=args.preemption_mode)
+
+
+def _workload(args, model_cfg):
+    reqs = sharegpt_like(WorkloadSpec(
+        n_requests=args.n_requests, inter_arrival_s=args.interval,
+        max_context=256, max_new_tokens=48, seed=1,
+    ))
+    attach_prompt_tokens(reqs, model_cfg.vocab_size, seed=1)
+    return reqs
+
+
+def build(args, *, host_kv_dtype: str = "auto"):
     """(engine, scheduler, kv_pool, requests) for the parsed arguments: the
-    engine is bound to the pool and warmed up, every kernel built."""
+    engine is bound to the pool and warmed up, every kernel built.
+    ``host_kv_dtype="int8"`` stages swapped pages as INT8 (an API option, as
+    in the JAX package: the CLI has no flag for it)."""
     _refuse_unported(args)
-    model_cfg = get_config(args.arch) if args.full else tiny_config(args.arch)
-    engine = TorchEngine(model_cfg, EngineConfig(
-        n_slots=16, max_context=512, pipelined=not args.sync_engine,
-    ), device=args.device)
+    model_cfg = _model_cfg(args)
+    engine = TorchEngine(model_cfg, _engine_cfg(args), device=args.device)
 
     fairness_cfg = None
     slo_cfg = None
@@ -148,17 +196,103 @@ def build(args):
         fairness=fairness_cfg,
         slo=slo_cfg,
     ))
-    reqs = sharegpt_like(WorkloadSpec(
-        n_requests=args.n_requests, inter_arrival_s=args.interval,
-        max_context=256, max_new_tokens=48, seed=1,
-    ))
-    attach_prompt_tokens(reqs, model_cfg.vocab_size, seed=1)
+    reqs = _workload(args, model_cfg)
     kv_pool = pool_for_model(model_cfg, n_blocks=args.kv_blocks,
-                             enable_prefix_cache=args.prefix_cache)
+                             enable_prefix_cache=args.prefix_cache,
+                             host_kv_dtype=host_kv_dtype)
     # bind first: warm-up runs against the physical pool serving will use
     engine.bind_kv_pool(kv_pool)
     engine.warmup()
     return engine, sched, kv_pool, reqs
+
+
+def build_fleet(args):
+    """(router, requests) for ``--disagg``: a prefill pool and a decode pool
+    of replicas on ``args.device``, sharing one weight set, each warmed up
+    with its swap kernels (every handoff rides them), as ``build`` warms
+    the colocated engine."""
+    from repro_torch.disagg import DisaggConfig, HandoffCostConfig, build_disagg
+
+    _refuse_unported(args)
+    model_cfg = _model_cfg(args)
+    router = build_disagg(
+        model_cfg,
+        cfg=DisaggConfig(
+            n_prefill=args.n_prefill,
+            n_decode=args.n_decode,
+            min_handoff_tokens=args.min_handoff_tokens,
+            cost=HandoffCostConfig() if args.handoff_cost else None,
+            robustness=robustness_from_args(args),
+        ),
+        engine_cfg=_engine_cfg(args),
+        sched_cfg=SchedulerConfig(
+            policy=args.policy, alpha=args.alpha, beta=args.beta,
+            token_budget=args.token_budget, max_seqs=16,
+            apc=APCConfig(c_max=4, l_min=16) if args.apc else None,
+        ),
+        n_blocks=args.kv_blocks,
+        prefix_cache=args.prefix_cache,
+        warmup=True,
+        device=args.device,
+    )
+    return router, _workload(args, model_cfg)
+
+
+def _print_report(row) -> None:
+    for k, v in row.items():
+        print(f"  {k:16s} {v*1e3 if 'e2e' in k or 'ttft' in k or 'prefill' in k or 'tpot' in k else v:10.2f}"
+              + (" ms" if any(t in k for t in ("e2e", "ttft", "prefill", "tpot")) else ""))
+
+
+def run_disagg(args):
+    """--disagg: serve the workload through the prefill pool + decode pool
+    fleet and its cross-replica KV handoff path."""
+    from repro_torch.disagg import serve_disagg
+
+    router, reqs = build_fleet(args)
+
+    def run():
+        return serve_disagg(reqs, router)
+
+    res = profiled(run, args.profile) if args.profile else run()
+    router.check_invariants()
+
+    if res.robustness is not None:
+        rb = res.robustness
+        print(f"  fault tolerance: died={rb.replicas_died} "
+              f"failovers={rb.failovers} resumable={rb.recovered_resumable} "
+              f"reprefill={rb.requeued_reprefill} "
+              f"shed={rb.shed_replica_failure} "
+              f"quarantined={rb.quarantined} faults_fired={rb.faults_fired}")
+        for ev in rb.events:
+            print(f"    {ev}")
+
+    row = res.report.row()
+    print(f"\n=== {args.arch}{'' if args.full else '-tiny'} | DISAGG "
+          f"{args.n_prefill}P+{args.n_decode}D policy={args.policy} "
+          f"kv=paged/split loop={'sync' if args.sync_engine else 'pipelined'} "
+          f"cost={'model' if args.handoff_cost else 'always'} ===")
+    print(f"finished {res.report.n_finished}/{res.report.n_total} "
+          f"in {res.wall_s:.2f}s  ({res.rounds} rounds over "
+          f"{len(router.replicas)} replicas)")
+    print(f"  handoffs={res.handoffs} colocated={res.colocated} "
+          f"dropped={res.dropped_handoffs} "
+          f"moved={res.bytes_moved / 2**20:.1f} MiB")
+    decode_prefill_tokens = sum(
+        rs.sched.stats.scheduled_prefill_tokens for rs in router.decode)
+    print(f"  decode-pool prefill tokens scheduled: {decode_prefill_tokens} "
+          f"(handoffs resume decode-only)")
+    _print_report(row)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({
+                "report": row, "rounds": res.rounds, "wall_s": res.wall_s,
+                "handoffs": res.handoffs, "colocated": res.colocated,
+                "dropped_handoffs": res.dropped_handoffs,
+                "bytes_moved": res.bytes_moved,
+                "decode_prefill_tokens": decode_prefill_tokens,
+            }, f)
+    return res
 
 
 # Chrome-trace categories of work on the device itself
@@ -178,10 +312,36 @@ def device_busy_ms(trace_events) -> float:
     return busy_us / 1e3
 
 
+def swap_device_ms(trace_events) -> dict:
+    """Device time of the swap path in a Chrome trace: ``{kind: (ms, events,
+    bytes)}`` for the swap kernels (``swap::``) and for the host<->device
+    copies by direction, those of at least 256 KiB (staged swap and
+    handoff payloads: one page of every layer is 768 KiB at full width) apart
+    from the small ones (sampled ids, block tables, page ids)."""
+    out = {}
+    for e in trace_events:
+        if e.get("ph") != "X":
+            continue
+        name = e.get("name", "")
+        if e.get("cat") == "kernel" and "swap::" in name:
+            kind = "swap kernels"
+        elif e.get("cat") == "gpu_memcpy" and ("DtoH" in name or "HtoD" in name):
+            n_bytes = e.get("args", {}).get("bytes", 0)
+            kind = (f"memcpy {'DtoH' if 'DtoH' in name else 'HtoD'} "
+                    f"{'>=' if n_bytes >= 1 << 18 else '<'} 256 KiB")
+        else:
+            continue
+        ms, n, b = out.get(kind, (0.0, 0, 0))
+        out[kind] = (ms + e["dur"] / 1e3, n + 1,
+                     b + e.get("args", {}).get("bytes", 0))
+    return out
+
+
 def profiled(run, trace_path: str):
     """``run()`` under torch.profiler (CPU and, on a card, CUDA activity):
     prints the top ops by self device time, the device-busy share of the
-    serve wall time, and writes a Chrome trace.  Tracing slows the host
+    serve wall time, the swap path's device time, and writes a Chrome
+    trace.  Tracing slows the host
     side; read host times from an untraced run."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -199,14 +359,20 @@ def profiled(run, trace_path: str):
     # from the trace's device events: summing the non-CPU rows of
     # key_averages() instead came to about twice the kernels' own time
     with open(trace_path) as f:
-        busy_ms = device_busy_ms(json.load(f)["traceEvents"])
+        events = json.load(f)["traceEvents"]
+    busy_ms = device_busy_ms(events)
     print(f"device busy {busy_ms:.1f} ms of {res.wall_s * 1e3:.1f} ms serve "
           f"wall ({busy_ms / (res.wall_s * 1e3):.1%}); trace: {trace_path}")
+    for kind, (ms, n, n_bytes) in sorted(swap_device_ms(events).items()):
+        print(f"  {kind}: {ms:.3f} ms device time ({ms / busy_ms:.2%} of "
+              f"busy) over {n} events, {n_bytes} B")
     return res
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.disagg:
+        return run_disagg(args)
     engine, sched, kv_pool, reqs = build(args)
 
     def run():
@@ -222,21 +388,25 @@ def main(argv=None):
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}"
           f" | policy={args.policy} apc={args.apc} kv=paged/split "
           f"loop={'sync' if args.sync_engine else 'pipelined'} "
-          f"prefix_cache={args.prefix_cache} preempt=recompute ===")
+          f"prefix_cache={args.prefix_cache} "
+          f"preempt={args.preemption_mode} ===")
     print(f"finished {res.report.n_finished}/{res.report.n_total} "
           f"in {res.wall_s:.2f}s  ({res.rounds} rounds)")
     if res.robustness is not None:
         rb = res.robustness
         print(f"  fault tolerance: crash_unwinds={rb.crash_unwinds} "
               f"quarantined={rb.quarantined} faults_fired={rb.faults_fired}")
-    for k, v in row.items():
-        print(f"  {k:16s} {v*1e3 if 'e2e' in k or 'ttft' in k or 'prefill' in k or 'tpot' in k else v:10.2f}"
-              + (" ms" if any(t in k for t in ("e2e", "ttft", "prefill", "tpot")) else ""))
+    _print_report(row)
     mem = res.memory
     if mem is not None:
         print(f"  kv: hit_rate={mem.cache_hit_rate:.2%} "
               f"hit_tokens={mem.cache_hit_tokens} evictions={mem.evictions} "
               f"preemptions={mem.preemptions} cached_blocks={mem.cached_blocks}")
+        if mem.swap_preemptions:
+            print(f"  swap: {mem.swap_preemptions} victims staged "
+                  f"({mem.swapped_out_tokens} tokens out, "
+                  f"{mem.swapped_in_tokens} restored over "
+                  f"{mem.swap_restores} swap-ins)")
     if res.slo is not None:
         for t, rep in res.slo.per_tenant.items():
             print(f"  slo[{t}]: attained={rep.attained} "

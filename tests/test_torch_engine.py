@@ -92,6 +92,7 @@ def test_port_imports_no_jax_and_no_repro():
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.engine.engine\n"
         "import repro_torch.weights, repro_torch.kernels.ops\n"
+        "import repro_torch.disagg, repro_torch.kernels.swap\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -129,18 +130,27 @@ def test_unported_fault_site_escapes_the_fault_boundary(weights):
               robustness=rb)
 
 
-@pytest.mark.parametrize("seed", range(8))
-def test_serve_cli_chaos_plan_uses_only_ported_sites(seed):
-    args = serve_cli.build_parser().parse_args(["--chaos-seed", str(seed),
-                                                "--chaos-faults", "6"])
+@pytest.mark.parametrize(
+    "seed,disagg", [(s, False) for s in range(8)] + [(s, True) for s in range(8)],
+    ids=[str(s) for s in range(8)] + [f"disagg-{s}" for s in range(8)])
+def test_serve_cli_chaos_plan_uses_only_ported_sites(seed, disagg):
+    """The fuzz draws only the sites the chosen path can fire: a colocated
+    replica the crash and slow-round sites, the disaggregated fleet those
+    and its handoff, gather and host-memory sites; never nan_logits (the NaN
+    guard is not ported)."""
+    args = serve_cli.build_parser().parse_args(
+        ["--chaos-seed", str(seed), "--chaos-faults", "6"]
+        + (["--disagg"] if disagg else []))
     plan = serve_cli.robustness_from_args(args).injector.plan
     assert len(plan.specs) == 6
-    assert {s.site for s in plan.specs} <= set(serve_cli.PORTED_FAULT_SITES)
+    sites = (serve_cli.PORTED_FAULT_SITES if disagg
+             else serve_cli.COLOCATED_FAULT_SITES)
+    assert {s.site for s in plan.specs} <= set(sites)
+    assert "nan_logits" not in sites
 
 
 @pytest.mark.parametrize("flags", [
-    ["--disagg"], ["--lprs"], ["--dense-kv"], ["--kv-layout", "fused"],
-    ["--preemption-mode", "swap"], ["--nan-guard"],
+    ["--lprs"], ["--dense-kv"], ["--kv-layout", "fused"], ["--nan-guard"],
 ])
 def test_serve_cli_refuses_unported_paths(flags):
     args = serve_cli.build_parser().parse_args(["--device", "cpu", *flags])
@@ -148,11 +158,15 @@ def test_serve_cli_refuses_unported_paths(flags):
         serve_cli.build(args)
 
 
-def test_serve_cli_has_no_handoff_ttl():
-    # the TTL only reaps disaggregated handoff records, and --disagg is
-    # refused: the option would do nothing
-    with pytest.raises(SystemExit):
-        serve_cli.build_parser().parse_args(["--handoff-ttl", "1"])
+def test_serve_cli_handoff_ttl_reaches_the_handoff_store():
+    args = serve_cli.build_parser().parse_args(
+        ["--device", "cpu", "--disagg", "--failover", "--handoff-ttl", "1.5",
+         "--n-requests", "2"])
+    router, reqs = serve_cli.build_fleet(args)
+    assert router.store.ttl_s == 1.5
+    assert len(router.prefill) == len(router.decode) == 1 and len(reqs) == 2
+    # warmed up as build() warms the colocated engine
+    assert all(rs.engine.warmed for rs in router.replicas)
 
 
 def test_device_busy_is_the_union_of_device_events():
@@ -167,6 +181,36 @@ def test_device_busy_is_the_union_of_device_events():
     ]
     assert serve_cli.device_busy_ms(ev) == pytest.approx(2.0)
     assert serve_cli.device_busy_ms([]) == 0.0
+
+
+def test_swap_device_ms_sums_swap_kernels_and_copies_by_direction():
+    big = 2 << 20
+    ev = [
+        {"ph": "X", "cat": "kernel", "name": "void swap::gather_kernel<int>()",
+         "ts": 0.0, "dur": 40.0},
+        {"ph": "X", "cat": "kernel", "name": "void swap::scatter_kernel<int>()",
+         "ts": 50.0, "dur": 60.0},
+        {"ph": "X", "cat": "kernel", "name": "void paged::paged_decode_kernel()",
+         "ts": 0.0, "dur": 99.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> Pinned)",
+         "ts": 0.0, "dur": 500.0, "args": {"bytes": big}},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> Pinned)",
+         "ts": 0.0, "dur": 2.0, "args": {"bytes": 64}},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD (Pinned -> Device)",
+         "ts": 0.0, "dur": 600.0, "args": {"bytes": big}},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoD (Device -> Device)",
+         "ts": 0.0, "dur": 7.0, "args": {"bytes": big}},
+        {"ph": "X", "cat": "cpu_op", "name": "swap::gather", "ts": 0.0,
+         "dur": 9000.0},
+    ]
+    got = serve_cli.swap_device_ms(ev)
+    assert got == {
+        "swap kernels": (pytest.approx(0.1), 2, 0),
+        "memcpy DtoH >= 256 KiB": (pytest.approx(0.5), 1, big),
+        "memcpy DtoH < 256 KiB": (pytest.approx(0.002), 1, 64),
+        "memcpy HtoD >= 256 KiB": (pytest.approx(0.6), 1, big),
+    }
+    assert serve_cli.swap_device_ms([]) == {}
 
 
 def test_greedy_sampling_takes_first_maximum():
