@@ -7,8 +7,8 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``).
 2. build: compile every CUDA kernel of the serving paths from ``csrc/``
-   (six libraries, one ``nvcc`` per source, in parallel) and print ptxas's
-   report.
+   (eight libraries, one ``nvcc`` per source, in parallel) and print
+   ptxas's report.
 3. kernels: each attention kernel against its plain PyTorch version on the card, at
    the main path's shapes (full-width qwen1.5-0.5b: B=16, Hq=Hkv=16, hd=64,
    page 16, ragged kv_lens up to 512 through permuted block tables, every
@@ -51,6 +51,29 @@ Phases, each of which raises (exit code != 0) on failure:
 9. reference: one prefill round and one decode round of the full-width model
    through the kernels on the card against the same rounds on the CPU
    through the plain versions (same bf16 weights; bf16 tolerance).
+10. fused kernels: the two fused-layout attention kernels against their
+   plain versions at phase 3's shapes and tolerances, on ``fuse_pages(k,
+   v)`` of phase 3's kind of inputs; each must also equal the split kernel
+   on ``(k, v)`` BITWISE.  Timed like phase 3, and against the split kernel
+   on the same inputs in turns (fused, split, split, fused).
+11. fused swap kernels: phase 4's bitwise cases on the fused serve pool
+   ``(24, 2049, 16, 32, 64)``, bucket 32, bf16.
+12. serve, fused: ``--full --kv-layout fused`` (static budget, recompute):
+   every request finishes, the fused prefill kernel runs 24 times per round
+   with C > 1 and the fused decode kernel 24 times per pure-decode round,
+   the split attention kernels never.  Then ``--preemption-mode swap
+   --kv-blocks 48`` on the fused pool: swap-outs happen, all are restored,
+   one gather per swap-out and one scatter per restore (the fused payload
+   is one tensor).  Greedy tokens against phase 5's are printed, not gated.
+13. LPRS: ``profile_engine`` + ``train_predictor`` (what ``--lprs`` runs) on
+   the fused full-width engine; prints the profile's round-latency
+   percentiles, the predictor's ``evaluate()`` on it and ``predict()``'s
+   time per call on the CPU and on the card; then serves aging + LPRS + APC
+   (``--lprs --apc --target-ms`` p60 of the profile) on the same engine:
+   every request finishes and the predictor was called.  The number of
+   LPRS chunk searches, the mean and p99 chunk sizes and the share of
+   rounds over the target are printed against phase 12's static run, not
+   gated.
 
 The second-to-last line is a JSON object listing every kernel with its
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -157,11 +180,25 @@ def max_err(got, want, live):
 
 
 # -- phase 3: kernels vs plain versions ----------------------------------------
+def time_kernel(timer, kernel, split, fused):
+    """(ms, turns): the kernel's time; for a fused kernel, timed against the
+    split kernel on the same inputs in turns -- fused, split, split, fused,
+    since the card's clocks drift between timings -- and ms is the mean of
+    its two turns."""
+    if not fused:
+        return timer(kernel), None
+    turns = (timer(kernel), timer(split), timer(split), timer(kernel))
+    return (turns[0] + turns[3]) / 2, turns
+
 def decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, ps, max_pages, n_pages,
-                dtype, timed):
+                dtype, timed, fused=False):
+    """The decode kernel against its plain version; ``fused``: the fused
+    kernel on ``fuse_pages(k, v)``, which must also equal the split kernel
+    on ``(k, v)`` bitwise."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_decode_attention import (
-        paged_decode_attention, paged_decode_attention_plain)
+        paged_decode_attention, paged_decode_attention_fused,
+        paged_decode_attention_fused_plain, paged_decode_attention_plain)
     import torch.nn.functional as F
 
     dev = "cuda"
@@ -173,14 +210,24 @@ def decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, ps, max_pages, n_pages,
     kv_lens = torch.randint(1, max_ctx + 1, (B,), generator=gen,
                             device=dev).to(torch.int32)
     kv_lens[0], kv_lens[1] = 0, max_ctx
-    args = (q, k, v, tables, kv_lens)
-    got = paged_decode_attention(*args)
-    want = paged_decode_attention_plain(*args)
+    split_args = (q, k, v, tables, kv_lens)
+    if fused:
+        args = (q, ref.fuse_pages(k, v), tables, kv_lens)
+        kernel, plain = (paged_decode_attention_fused,
+                         paged_decode_attention_fused_plain)
+    else:
+        args, kernel, plain = (split_args, paged_decode_attention,
+                               paged_decode_attention_plain)
+    got = kernel(*args)
+    want = plain(*args)
     torch.cuda.synchronize()
     live = kv_lens > 0
     if not bool((got[~live] == 0).all()):
         raise AssertionError("decode kernel: a row with no valid key is not 0")
     err = max_err(got, want, live)
+    if fused:
+        require(same_bits(got, paged_decode_attention(*split_args)),
+                "fused decode kernel differs from the split kernel")
     if not timed:
         return {"max_abs_err": err}
     # library yardstick: SDPA over the gathered dense K/V
@@ -190,8 +237,9 @@ def decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, ps, max_pages, n_pages,
     mask = (torch.arange(S, device=dev)[None, :] < kv_lens[:, None].long())
     mask = mask[:, None, None, :]
     q4 = q[:, :, None, :]
-    ms = timer(lambda: paged_decode_attention(*args))
-    plain_ms = timer(lambda: paged_decode_attention_plain(*args))
+    ms, turns = time_kernel(timer, lambda: kernel(*args),
+                            lambda: paged_decode_attention(*split_args), fused)
+    plain_ms = timer(lambda: plain(*args))
     lib_ms = timer(lambda: F.scaled_dot_product_attention(
         q4, kd, vd, attn_mask=mask))
     keys = int(kv_lens.sum())
@@ -203,15 +251,20 @@ def decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, ps, max_pages, n_pages,
     b_ms, b_by = bound_ms(n_bytes, n_flops)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "turns": turns,
             "shape": f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps} "
                      f"kv_lens<={max_ctx} (sum {keys})"}
 
 
 def prefill_case(torch, timer, gen, *, B, Sq, Hq, Hkv, hd, ps, max_pages,
-                 n_pages, dtype, timed):
+                 n_pages, dtype, timed, fused=False):
+    """The prefill kernel against its plain version; ``fused``: the fused
+    kernel on ``fuse_pages(k, v)``, which must also equal the split kernel
+    on ``(k, v)`` bitwise."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_prefill_attention import (
-        paged_prefill_attention, paged_prefill_attention_plain)
+        paged_prefill_attention, paged_prefill_attention_fused,
+        paged_prefill_attention_fused_plain, paged_prefill_attention_plain)
     import torch.nn.functional as F
 
     dev = "cuda"
@@ -221,14 +274,24 @@ def prefill_case(torch, timer, gen, *, B, Sq, Hq, Hkv, hd, ps, max_pages,
     q = torch.randn((B, Sq, Hq, hd), generator=gen, device=dev).to(dtype)
     max_ctx = (max_pages - 1) * ps
     q_offset, kv_lens = chunk_lens_for(gen, B, Sq, max_ctx, dev)
-    args = (q, k, v, tables, kv_lens, q_offset)
-    got = paged_prefill_attention(*args)
-    want = paged_prefill_attention_plain(*args)
+    split_args = (q, k, v, tables, kv_lens, q_offset)
+    if fused:
+        args = (q, ref.fuse_pages(k, v), tables, kv_lens, q_offset)
+        kernel, plain = (paged_prefill_attention_fused,
+                         paged_prefill_attention_fused_plain)
+    else:
+        args, kernel, plain = (split_args, paged_prefill_attention,
+                               paged_prefill_attention_plain)
+    got = kernel(*args)
+    want = plain(*args)
     torch.cuda.synchronize()
     live = kv_lens > 0                     # key 0 is visible to every row
     if not bool((got[~live] == 0).all()):
         raise AssertionError("prefill kernel: a row with no valid key is not 0")
     err = max_err(got, want, live)
+    if fused:
+        require(same_bits(got, paged_prefill_attention(*split_args)),
+                "fused prefill kernel differs from the split kernel")
     if not timed:
         return {"max_abs_err": err}
     kd = ref.gather_pages(k, tables).transpose(1, 2)           # (B, Hkv, S, hd)
@@ -240,8 +303,9 @@ def prefill_case(torch, timer, gen, *, B, Sq, Hq, Hkv, hd, ps, max_pages,
             & (pos_k[None, None, :] < kv_lens[:, None, None].long()))
     mask = mask[:, None]                                       # (B, 1, Sq, S)
     qt = q.transpose(1, 2)
-    ms = timer(lambda: paged_prefill_attention(*args))
-    plain_ms = timer(lambda: paged_prefill_attention_plain(*args))
+    ms, turns = time_kernel(timer, lambda: kernel(*args),
+                            lambda: paged_prefill_attention(*split_args), fused)
+    plain_ms = timer(lambda: plain(*args))
     lib_ms = timer(lambda: F.scaled_dot_product_attention(
         qt, kd, vd, attn_mask=mask))
     # the work these inputs need: each row's visible keys, each live key's
@@ -257,12 +321,22 @@ def prefill_case(torch, timer, gen, *, B, Sq, Hq, Hkv, hd, ps, max_pages,
     b_ms, b_by = bound_ms(n_bytes, n_flops)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "turns": turns,
             "shape": f"B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps} "
                      f"kv_lens<={max_ctx}"}
 
 
-def kernel_phase(torch):
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def split_note(r) -> str:
+    if r["turns"] is None:
+        return ""
+    return ("; on the same inputs in turns, fused / split / split / fused "
+            + " / ".join(f"{t:.4f}" for t in r["turns"]) + " ms")
+
+
+def kernel_phase(torch, fused=False):
+    """Phase 3 (split kernels) or, with ``fused``, phase 10 (fused kernels):
+    the same shapes, tolerances and timings."""
+    gen = torch.Generator(device="cuda").manual_seed(10 if fused else 0)
     timer = Timer(torch)
     # main path: full-width qwen1.5-0.5b at serve defaults -- n_slots 16,
     # max_context 512 (33 pages per table), the serve pool of 2049 pages
@@ -270,37 +344,44 @@ def kernel_phase(torch):
     gqa = dict(qwen, Hq=32, Hkv=8)                  # llama3.2-1b heads
     gqa128 = dict(gqa, hd=128)                      # the other head dim built
     bf16, f32 = torch.bfloat16, torch.float32
+    layout = "fused" if fused else "split"
     results = {}
-    dec = decode_case(torch, timer, gen, dtype=bf16, timed=True, **qwen)
-    log(f"  decode  qwen bf16 {dec['shape']}: err {dec['max_abs_err']:.3e} "
-        f"kernel {dec['ms']:.4f} ms plain {dec['plain_ms']:.4f} ms "
-        f"sdpa {dec['library_ms']:.4f} ms bound {dec['bound_ms']:.4f} ms "
-        f"({dec['bound_by']})")
-    results["paged_decode_attention"] = dec
+    dec = decode_case(torch, timer, gen, dtype=bf16, timed=True, fused=fused,
+                      **qwen)
+    log(f"  decode  {layout} qwen bf16 {dec['shape']}: err "
+        f"{dec['max_abs_err']:.3e} kernel {dec['ms']:.4f} ms plain "
+        f"{dec['plain_ms']:.4f} ms sdpa {dec['library_ms']:.4f} ms bound "
+        f"{dec['bound_ms']:.4f} ms ({dec['bound_by']})" + split_note(dec))
+    results["paged_decode_attention" + ("_fused" if fused else "")] = dec
     for dtype, shape, name in ((bf16, gqa, "gqa bf16"),
                                (bf16, gqa128, "gqa hd=128 bf16"),
                                (f32, qwen, "qwen f32")):
-        r = decode_case(torch, timer, gen, dtype=dtype, timed=False, **shape)
-        log(f"  decode  {name}: err {r['max_abs_err']:.3e}")
+        r = decode_case(torch, timer, gen, dtype=dtype, timed=False,
+                        fused=fused, **shape)
+        log(f"  decode  {layout} {name}: err {r['max_abs_err']:.3e}")
     buckets = {}
     for Sq in (16, 32, 64, 128, 256):
-        r = prefill_case(torch, timer, gen, Sq=Sq, dtype=bf16, timed=True, **qwen)
+        r = prefill_case(torch, timer, gen, Sq=Sq, dtype=bf16, timed=True,
+                         fused=fused, **qwen)
         buckets[Sq] = r
-        log(f"  prefill qwen bf16 {r['shape']}: err {r['max_abs_err']:.3e} "
-            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-            f"sdpa {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+        log(f"  prefill {layout} qwen bf16 {r['shape']}: err "
+            f"{r['max_abs_err']:.3e} kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})" + split_note(r))
     for dtype, shape, Sq, name in ((bf16, gqa, 64, "gqa bf16 Sq=64"),
                                    (bf16, gqa128, 64, "gqa hd=128 bf16 Sq=64"),
                                    (f32, qwen, 128, "qwen f32 Sq=128")):
         r = prefill_case(torch, timer, gen, Sq=Sq, dtype=dtype, timed=False,
-                         **shape)
-        log(f"  prefill {name}: err {r['max_abs_err']:.3e}")
+                         fused=fused, **shape)
+        log(f"  prefill {layout} {name}: err {r['max_abs_err']:.3e}")
+    if fused:
+        log("  every fused output bitwise equal to the split kernel's on "
+            "the un-fused pools")
     # the kernels line reports Sq=128 (the token budget) and the worst error
     # over every bucket
     pre = dict(buckets[128])
     pre["max_abs_err"] = max(b["max_abs_err"] for b in buckets.values())
-    results["paged_prefill_attention"] = pre
+    results["paged_prefill_attention" + ("_fused" if fused else "")] = pre
     return results
 
 
@@ -620,11 +701,14 @@ def check_outputs(res, reqs, vocab_size):
 
 def kernel_fns():
     from repro_torch.kernels import swap as sw
-    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
-    from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention, paged_decode_attention_fused)
+    from repro_torch.kernels.paged_prefill_attention import (
+        paged_prefill_attention, paged_prefill_attention_fused)
     fns = {n: getattr(sw, n) for n in SWAP_KERNELS}
-    fns["paged_decode_attention"] = paged_decode_attention
-    fns["paged_prefill_attention"] = paged_prefill_attention
+    for fn in (paged_decode_attention, paged_prefill_attention,
+               paged_decode_attention_fused, paged_prefill_attention_fused):
+        fns[fn.__name__] = fn
     return fns
 
 
@@ -643,13 +727,20 @@ def note_tokens(reqs, outputs, baseline) -> None:
         f"{len(reqs)} requests (printed, not gated: bf16)")
 
 
-def swap_serve_phase(torch, host_kv_dtype, baseline):
+def attention_names(layout):
+    """(this layout's attention kernels, the other layout's)."""
+    split = ("paged_decode_attention", "paged_prefill_attention")
+    fused = tuple(n + "_fused" for n in split)
+    return (fused, split) if layout == "fused" else (split, fused)
+
+
+def swap_serve_phase(torch, host_kv_dtype, baseline, layout="split"):
     from repro_torch.engine.engine import serve
     from repro_torch.launch import serve as serve_cli
 
     args = serve_cli.build_parser().parse_args(
-        ["--full", "--preemption-mode", "swap", "--kv-blocks",
-         str(SWAP_KV_BLOCKS)])
+        ["--full", "--kv-layout", layout, "--preemption-mode", "swap",
+         "--kv-blocks", str(SWAP_KV_BLOCKS)])
     engine, sched, kv_pool, reqs = serve_cli.build(
         args, host_kv_dtype=host_kv_dtype)               # binds + warms up
     torch.cuda.synchronize()
@@ -660,22 +751,27 @@ def swap_serve_phase(torch, host_kv_dtype, baseline):
 
     toks = check_outputs(res, reqs, engine.model_cfg.vocab_size)
     st = sched.stats
+    # one gather / scatter per cache tensor: K and V split, one fused pool
+    per = len(engine.cache)
     require(st.swap_preemptions > 0, "no swap preemption happened")
     require(st.swap_restores == st.swap_preemptions,
             f"{st.swap_restores} restores != {st.swap_preemptions} swap-outs")
     used, idle = SWAP_KERNELS[:2], SWAP_KERNELS[2:]
     if host_kv_dtype == "int8":
         used, idle = idle, used
-    require(launches[used[0]] == 2 * st.swap_preemptions,
-            f"{used[0]} launches {launches} != 2 x {st.swap_preemptions} "
-            "swap-outs (K and V)")
-    require(launches[used[1]] == 2 * st.swap_restores,
-            f"{used[1]} launches {launches} != 2 x {st.swap_restores} restores")
+    require(launches[used[0]] == per * st.swap_preemptions,
+            f"{used[0]} launches {launches} != {per} x {st.swap_preemptions} "
+            f"swap-outs ({tuple(engine.cache)})")
+    require(launches[used[1]] == per * st.swap_restores,
+            f"{used[1]} launches {launches} != {per} x {st.swap_restores} "
+            "restores")
     require(launches[idle[0]] == launches[idle[1]] == 0,
             f"the other swap pair ran: {launches}")
-    require(min(launches["paged_decode_attention"],
-                launches["paged_prefill_attention"]) > 0,
+    attn, other = attention_names(layout)
+    require(min(launches[n] for n in attn) > 0,
             f"an attention kernel did not run: {launches}")
+    require(max(launches[n] for n in other) == 0,
+            f"the other layout's attention kernels ran: {launches}")
     require(not kv_pool.swapped_requests(), "a request is still staged")
     kv_pool.check_invariants()
     log(f"  served {res.report.n_finished}/{res.report.n_total} requests, "
@@ -789,6 +885,165 @@ def reference_phase(torch, model_cfg, params):
 
 
 
+# -- phase 11: the swap kernels on the fused pool --------------------------------
+FUSED_SWAP_POOL = (24, 2049, 16, 32, 64)   # (L, n_phys, ps, 2*Hkv, hd)
+
+
+def fused_swap_kernel_phase(torch):
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    pages = torch.randn(FUSED_SWAP_POOL, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    r = swap_case(torch, None, gen, pages, 32, 19, timed=False)
+    log(f"  swap kernels on the fused pool {FUSED_SWAP_POOL} bf16 bucket 32 "
+        "(19 real): bitwise equal to the plain versions, pages outside the "
+        "ids unchanged; max |kernel - plain| "
+        f"{max(v['max_abs_err'] for v in r.values()):.3e}")
+    del pages
+    torch.cuda.empty_cache()
+
+
+# -- phases 12-13: the fused layout served, static budget and LPRS -------------
+def record_chunks(sched):
+    """Record the chunk size of every prefill chunk the scheduler commits."""
+    chunks = []
+    schedule = sched.schedule
+
+    def recording(now):
+        batch = schedule(now)
+        chunks.extend(c for _, c in batch.prefill_chunks)
+        return batch
+
+    sched.schedule = recording
+    return chunks
+
+
+def fused_serve_phase(torch, baseline):
+    from repro_torch.engine.engine import serve
+    from repro_torch.launch import serve as serve_cli
+
+    args = serve_cli.build_parser().parse_args(
+        ["--full", "--kv-layout", "fused"])
+    engine, sched, kv_pool, reqs = serve_cli.build(args)  # binds + warms up
+    cfg = engine.model_cfg
+    require(tuple(engine.cache) == ("kv",)
+            and engine.cache["kv"].shape[3] == 2 * cfg.n_kv_heads,
+            f"not a fused pool: {[tuple(t.shape) for t in engine.cache.values()]}")
+    chunks = record_chunks(sched)
+    torch.cuda.synchronize()
+    engine.bucket_rounds.clear()
+    zero_launches()
+    res = serve(reqs, sched, engine, kv_pool=kv_pool, collect_samples=True)
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    toks = check_outputs(res, reqs, cfg.vocab_size)
+    decode_rounds = engine.bucket_rounds.get(1, 0)
+    mixed_rounds = sum(n for c, n in engine.bucket_rounds.items() if c > 1)
+    require(decode_rounds > 0 and mixed_rounds > 0,
+            f"rounds by bucket {engine.bucket_rounds}")
+    require(launches["paged_decode_attention_fused"]
+            == cfg.n_layers * decode_rounds,
+            f"fused decode launches {launches} != {cfg.n_layers} x "
+            f"{decode_rounds} pure-decode rounds")
+    require(launches["paged_prefill_attention_fused"]
+            == cfg.n_layers * mixed_rounds,
+            f"fused prefill launches {launches} != {cfg.n_layers} x "
+            f"{mixed_rounds} rounds with C > 1")
+    require(launches["paged_decode_attention"]
+            == launches["paged_prefill_attention"] == 0,
+            f"a split attention kernel ran on the fused path: {launches}")
+    log(f"  served {res.report.n_finished}/{res.report.n_total} requests, "
+        f"{len(toks)} output tokens in {res.wall_s:.3f} s over {res.rounds} "
+        f"rounds (by chunk bucket: {dict(sorted(engine.bucket_rounds.items()))})"
+        f"; output tok/s {len(toks) / res.wall_s:.1f}")
+    log(f"  kernel launches on the fused path: {launches}")
+    note_tokens(reqs, res.outputs, baseline)
+    static = {"res": res, "chunks": chunks, "searches": 0,
+              "tokens": len(toks)}
+    return engine, kv_pool, launches, static
+
+
+def time_predict_us(predict, x, n=200) -> float:
+    for _ in range(20):
+        predict(x)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        predict(x)
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def lprs_phase(torch, engine, kv_pool, static):
+    import numpy as np
+    from repro_torch.core.predictor import LatencyPredictor
+    from repro_torch.engine.engine import serve
+    from repro_torch.launch import serve as serve_cli
+
+    cfg = engine.model_cfg
+    t0 = time.perf_counter()
+    feats, lats = serve_cli.profile_engine(cfg, engine, kv_pool=kv_pool)
+    t1 = time.perf_counter()
+    pred = serve_cli.train_predictor(feats, lats)
+    t2 = time.perf_counter()
+    require(pred.device.type == "cpu", f"predictor on {pred.device}")
+    p10, p50, p60, p90 = (float(x) for x in np.percentile(lats, [10, 50, 60, 90]))
+    log(f"  profile: {len(lats)} rounds in {t1 - t0:.2f} s, round latency "
+        f"p10 {p10:.3f} p50 {p50:.3f} p90 {p90:.3f} ms; predictor trained "
+        f"on the CPU in {t2 - t1:.2f} s")
+    ev = pred.evaluate(feats, lats)
+    log(f"  predictor on the profile: MAPE {ev['mape_pct']:.2f}% MAE "
+        f"{ev['mae_ms']:.3f} ms p99 |err| {ev['p99_ms']:.3f} ms")
+    # one chunk search's batch: candidates {1, 32, 64, 96, 128}
+    x = feats[:5]
+    on_card = LatencyPredictor.from_state(pred.state_dict(), device="cuda")
+    a, b = pred.predict(x), on_card.predict(x)
+    require(bool(np.allclose(a, b, rtol=1e-4, atol=1e-3)),
+            f"predict() on the card {b} != on the CPU {a}")
+    us_cpu = time_predict_us(pred.predict, x)
+    us_cuda = time_predict_us(on_card.predict, x)
+    log(f"  predict() of 5 candidates, idle card: {us_cpu:.1f} us per call "
+        f"on the CPU, {us_cuda:.1f} us on cuda")
+
+    args = serve_cli.build_parser().parse_args(
+        ["--full", "--kv-layout", "fused", "--policy", "aging", "--lprs",
+         "--apc", "--target-ms", repr(p60)])
+    sched = serve_cli.build_scheduler(args, pred)
+    require(sched.cfg.lprs.target_latency_ms == p60, "target not passed on")
+    reqs = serve_cli.workload(args, cfg)
+    chunks = record_chunks(sched)
+    searches = [0]
+    predict = pred.predict
+
+    def counted(features):
+        searches[0] += 1
+        return predict(features)
+
+    pred.predict = counted
+    torch.cuda.synchronize()
+    zero_launches()
+    res = serve(reqs, sched, engine, kv_pool=kv_pool, collect_samples=True)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    toks = check_outputs(res, reqs, cfg.vocab_size)
+    require(searches[0] > 0, "the LPRS predictor was never called")
+    require(min(launches[n] for n in attention_names("fused")[0]) > 0,
+            f"a fused attention kernel did not run: {launches}")
+    lprs = {"res": res, "chunks": chunks, "searches": searches[0],
+            "tokens": len(toks)}
+    log(f"  target {p60:.3f} ms (p60 of the profile); kernel launches "
+        f"{launches}")
+    for label, run in (("static", static), ("lprs+apc", lprs)):
+        r, ch = run["res"], np.asarray(run["chunks"], np.float64)
+        over = float(np.mean(r.samples[1] > p60))
+        log(f"  {label:9s} finished {r.report.n_finished}/{r.report.n_total}"
+            f" in {r.wall_s:.3f} s over {r.rounds} rounds; chunk searches "
+            f"{run['searches']}; chunk size mean {ch.mean():.1f} p99 "
+            f"{np.percentile(ch, 99):.1f} over {len(ch)} chunks; rounds over "
+            f"the target {over:.1%}; output tok/s "
+            f"{run['tokens'] / r.wall_s:.1f}; P99 E2E "
+            f"{r.report.e2e['p99'] * 1e3:.1f} ms; mean TTFT "
+            f"{r.report.ttft['mean'] * 1e3:.1f} ms")
+
+
 def main() -> int:
     import torch
 
@@ -849,20 +1104,45 @@ def main() -> int:
 
     log("== full-width model: kernels on the card vs plain on the CPU")
     reference_phase(torch, engine.model_cfg, engine.params)
+    del engine
+    torch.cuda.empty_cache()
+
+    log("== fused kernels vs plain versions and the split kernels")
+    kern.update(kernel_phase(torch, fused=True))
+    torch.cuda.empty_cache()
+    log("== swap kernels on the fused pool")
+    fused_swap_kernel_phase(torch)
+
+    log("== serve, fused (--full --kv-layout fused)")
+    fused_engine, fused_pool, fused_launches, static = fused_serve_phase(
+        torch, baseline)
+    log(f"== serve, fused swap (--full --kv-layout fused --preemption-mode "
+        f"swap --kv-blocks {SWAP_KV_BLOCKS})")
+    swap_serve_phase(torch, "auto", baseline, layout="fused")
+    torch.cuda.empty_cache()
+    log("== LPRS (--full --kv-layout fused --policy aging --lprs --apc)")
+    lprs_phase(torch, fused_engine, fused_pool, static)
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/paged_decode_attention.py:249",
         "paged_prefill_attention": "src/repro/kernels/paged_prefill_attention.py:213",
+        "paged_decode_attention_fused":
+            "src/repro/kernels/paged_decode_attention.py:303",
+        "paged_prefill_attention_fused":
+            "src/repro/kernels/paged_prefill_attention.py:274",
         "swap_gather_pages": "src/repro/kernels/swap.py:84",
         "swap_scatter_pages": "src/repro/kernels/swap.py:113",
         "swap_gather_pages_q8": "src/repro/kernels/swap.py:179",
         "swap_scatter_pages_q8": "src/repro/kernels/swap.py:221",
     }
     # each kernel's launches come from the serve phase of its own path:
-    # attention from the recompute main path, the fp swap pair from the swap
-    # phase, the INT8 pair from the INT8 phase
+    # split attention from the recompute main path, fused attention from
+    # the fused serve phase, the fp swap pair from the swap phase, the INT8
+    # pair from the INT8 phase
     path_launches = {**swap_launches, **{n: q8_launches[n]
-                                         for n in SWAP_KERNELS[2:]}, **launches}
+                                         for n in SWAP_KERNELS[2:]}, **launches,
+                     **{n: fused_launches[n]
+                        for n in attention_names("fused")[0]}}
     kernels = []
     for name, rep in {**kern, **swap_kern}.items():
         kernels.append({

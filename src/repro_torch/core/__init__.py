@@ -1,8 +1,5 @@
 """The paper's contribution: fairness-aware, latency-controllable scheduling
-for chunked-prefill LLM serving (Aging + LPRS + APC).
-
-The LPRS latency predictor (an MLP trained in JAX) is not part of this
-package yet: LPRS runs only with a predictor object the caller supplies."""
+for chunked-prefill LLM serving (Aging + LPRS + APC)."""
 from repro_torch.core.apc import APCConfig, APCStats, activity_cap, min_effective_progress
 from repro_torch.core.features import BatchState, derive_features, FEATURE_NAMES, N_FEATURES
 from repro_torch.core.lprs import LPRSConfig, candidate_set, select_chunk
@@ -11,6 +8,12 @@ from repro_torch.core.policies import (
     PrefillQueue,
     aging_priority,
     make_policy,
+)
+from repro_torch.core.predictor import (
+    AnalyticPredictor,
+    LatencyPredictor,
+    PredictorConfig,
+    bucket_and_downsample,
 )
 from repro_torch.core.request import Request, RequestState
 from repro_torch.core.scheduler import (
@@ -25,6 +28,7 @@ __all__ = [
     "BatchState", "derive_features", "FEATURE_NAMES", "N_FEATURES",
     "LPRSConfig", "candidate_set", "select_chunk",
     "NaiveAgingQueue", "PrefillQueue", "aging_priority", "make_policy",
+    "AnalyticPredictor", "LatencyPredictor", "PredictorConfig", "bucket_and_downsample",
     "Request", "RequestState",
     "ChunkedPrefillScheduler", "ScheduledBatch", "SchedulerConfig", "SchedulerStats",
 ]

@@ -10,7 +10,10 @@ storage (vLLM layout):
   * K/V live in a physical page pool ``(layers, n_blocks + 1, block_size,
     kv_heads, head_dim)`` whose page ids are exactly the ``KVBlockPool``'s
     block ids, addressed through per-slot block tables; the last page is a
-    write sink for padding lanes.
+    write sink for padding lanes.  ``kv_layout="split"`` keeps two pools
+    (``cache["k"]``, ``cache["v"]``); ``"fused"`` one pool ``cache["kv"]``
+    with ``2 * kv_heads`` head rows, K of head h at 2h and V at 2h+1, which
+    swaps and hands off as a one-entry payload.
   * One step per scheduling round executes the ENTIRE mixed batch -- decode
     slots advance by 1 token, prefill slots by their scheduled chunk, idle
     slots by 0 -- under bucketed chunk shapes, then samples and keeps the
@@ -34,8 +37,8 @@ storage (vLLM layout):
     of ``repro.core``); latencies are wall-clock.
 
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-queue item): ``paged_kv=False``, ``kv_layout="fused"``, ``nan_guard`` and
-the poison/scrub chaos hooks.
+queue item): ``paged_kv=False``, ``nan_guard`` and the poison/scrub chaos
+hooks.
 """
 from __future__ import annotations
 
@@ -84,7 +87,11 @@ class EngineConfig:
     # accepted, no effect: the TPU meaning (pages DMA-gathered per tile,
     # VMEM buffers per grid) does not carry over to the CUDA kernels
     pages_per_tile: int = 1
-    kv_layout: str = "split"          # "fused" is not ported yet
+    # physical page-pool layout: "split" keeps separate K and V pools;
+    # "fused" interleaves them on the head axis ([K0,V0,K1,V1,...]) so the
+    # attention kernels read each key's K and V as one contiguous run and
+    # a swap moves one payload tensor
+    kv_layout: str = "split"
     buffering_depth: int = 1
     pipelined: bool = True            # overlap schedule(N+1) with execute(N)
     # preemption mode: "recompute" discards a victim's KV (re-prefill from
@@ -195,8 +202,7 @@ class TorchEngine:
         self.cfg = cfg or EngineConfig()
         if not self.cfg.paged_kv:
             raise _not_ported("paged_kv=False (dense KV slots)", 9)
-        if self.cfg.kv_layout != "split":
-            raise _not_ported(f"kv_layout={self.cfg.kv_layout!r}", 6)
+        assert self.cfg.kv_layout in ("split", "fused"), self.cfg.kv_layout
         if self.cfg.nan_guard:
             raise _not_ported("nan_guard=True", 8)
         assert self.cfg.buffering_depth >= 1, self.cfg.buffering_depth
@@ -264,8 +270,8 @@ class TorchEngine:
         self._n_phys = self.kv_pool.cfg.n_blocks + 1
         self._sink = self.kv_pool.cfg.n_blocks
         self.max_pages = math.ceil(S / bs) + 1
-        kv_shape = (model_cfg.n_layers, self._n_phys, bs,
-                    model_cfg.n_kv_heads, hd)
+        n_kv = model_cfg.n_kv_heads * (2 if cfg.kv_layout == "fused" else 1)
+        kv_shape = (model_cfg.n_layers, self._n_phys, bs, n_kv, hd)
         # device-resident block tables; _bt_host mirrors exactly what the
         # device holds, _bt_len tracks per-slot entries already uploaded
         self._bt_host = np.full((B, self.max_pages), self._sink, np.int32)
@@ -273,12 +279,18 @@ class TorchEngine:
         self._bt_dirty: set = set()
         self.block_tables = self._upload(self._bt_host)
         # drop the old pool before allocating the new one (a rebind at full
-        # width would otherwise hold two ~1.6 GB pools per tensor at once)
+        # width would otherwise hold two ~1.6 GB pools per tensor at once);
+        # the keys are in swap payload order
         self.cache = None
-        self.cache = {"k": torch.zeros(kv_shape, dtype=dt, device=dev),
-                      "v": torch.zeros(kv_shape, dtype=dt, device=dev)}
+        self.cache = {name: torch.zeros(kv_shape, dtype=dt, device=dev)
+                      for name in self._cache_names()}
         self.lens = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.last_token = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+    def _cache_names(self) -> Tuple[str, ...]:
+        """The cache dict's tensor keys, in swap payload order: the fused
+        layout stores ONE head-interleaved pool, split stores two."""
+        return ("kv",) if self.cfg.kv_layout == "fused" else ("k", "v")
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host numpy -> a NEW device tensor.  On a card the bytes go through
@@ -492,9 +504,10 @@ class TorchEngine:
         """The staged page count of a payload that fits this engine's cache
         layout (one entry per cache tensor)."""
         assert payload is not None, f"restore of req {req.req_id} without payload"
-        assert len(payload) == len(self.cache), (
+        names = self._cache_names()
+        assert len(payload) == len(names), (
             f"req {req.req_id}: payload arity {len(payload)} != cache layout "
-            f"{tuple(self.cache)} -- swapped under a different kv_layout?"
+            f"{names} -- swapped under a different kv_layout?"
         )
         first = payload[0][0] if isinstance(payload[0], tuple) else payload[0]
         return first.shape[1]

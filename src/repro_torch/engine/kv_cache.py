@@ -272,6 +272,7 @@ class KVBlockPool:
         # host tier: private by default; attach_host_tier shares one budget
         # across several pools and the handoff store
         self.host = HostTier(cfg.host_max_bytes)
+        self._host_shared = False     # attach_host_tier replaced it
         self._host_charged = 0        # bytes THIS pool holds in the tier
         # per-request registration + per-tenant accounting
         self._reg: Dict[int, _Registration] = {}
@@ -583,6 +584,26 @@ class KVBlockPool:
             else:
                 self._reg.pop(req_id, None)
 
+    def reset(self) -> None:
+        """Bring an idle pool back to its just-built state, for a run that
+        must not carry into the next one (a profiling run before the serve
+        it tunes): the cached prefix blocks are freed, since the next run
+        would hit on them, and the counters, the clock and the free list
+        start again.  A host tier shared with other pools keeps its ledger;
+        a private one is emptied with the pool."""
+        assert not self.tables and not self._swap, (
+            "reset() of a pool with live or staged requests")
+        assert not self._host_charged
+        self.free_blocks = list(range(self.cfg.n_blocks - 1, -1, -1))
+        for d in (self._ref, self._hash_of, self._payload, self._cache_index,
+                  self._evictable, self._parked_at, self._reg,
+                  self._tenant_used):
+            d.clear()
+        self._now = 0.0
+        self.stats = KVPoolStats()
+        if not self._host_shared:
+            self.host = HostTier(self.cfg.host_max_bytes)
+
     # -- host staging tier ------------------------------------------------------
     def attach_host_tier(self, tier: HostTier) -> None:
         """Share one ``HostTier`` budget with other pools / the handoff
@@ -592,6 +613,7 @@ class KVBlockPool:
             "attach_host_tier after records were staged"
         )
         self.host = tier
+        self._host_shared = True
 
     def host_bytes_for(self, tokens: int) -> int:
         """Bytes a staged record of this many tokens charges the host tier.

@@ -1,6 +1,9 @@
-// Shared pieces of the two paged-attention kernels (decode and chunked
-// prefill): K/V tile staging through the block table, one online-softmax step
-// over a staged tile, and the final normalisation.
+// Shared pieces of the paged-attention kernels (decode and chunked prefill,
+// split and fused KV layouts): K/V tile staging through the block table, one
+// online-softmax step over a staged tile, and the final normalisation.  The
+// layouts differ only in where load_kv_tile reads a key's K and V (KVPool),
+// so a fused kernel on fuse_pages(k, v) stages the same f32 tile as the split
+// kernel on (k, v) and gives the same output bit for bit.
 //
 // A CTA owns ROWS query rows that all read ONE kv head.  It walks the
 // sequence's keys kTileK at a time: the whole CTA stages the tile's K and V
@@ -45,18 +48,49 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Stage keys [tile_start, tile_start + kTileK) of kv head `kv_head` into
-// shared memory as f32.  Key `pos` lives at row pos % page_size of physical
-// page table_row[pos / page_size] in a (n_pages, page_size, n_kv_heads, HD)
-// pool, so each key's HD values are contiguous: 16-byte loads, neighbouring
-// threads on neighbouring addresses.  Keys at or past `n_keys` are not read
-// and stage as zeros.
+// Where kv head `kv_head`'s K and V rows live in a page pool.  Key row
+// `row` (= page * page_size + pos % page_size) holds its K values at
+// k + row * row_stride + k_head_off and its V values at
+// v + row * row_stride + v_head_off, HD contiguous elements each.
+//   split pools (n_pages, ps, Hkv, HD) x2: row_stride Hkv*HD, both offsets
+//     kv_head*HD, k and v two pools;
+//   fused pool (n_pages, ps, 2*Hkv, HD), heads [K0,V0,K1,V1,...]:
+//     row_stride 2*Hkv*HD, K at head 2h and V at 2h+1, k == v -- so K_h and
+//     V_h of one key are one contiguous 2*HD run.
+template <typename T>
+struct KVPool {
+  const T* k;
+  const T* v;
+  size_t row_stride;
+  int k_head_off;
+  int v_head_off;
+};
+
+template <typename T, bool FUSED>
+__device__ __forceinline__ KVPool<T> kv_pool(const T* k_pages,
+                                             const T* v_pages, int n_kv_heads,
+                                             int kv_head, int hd) {
+  if (FUSED) {
+    return {k_pages, k_pages, (size_t)2 * n_kv_heads * hd,
+            2 * kv_head * hd, (2 * kv_head + 1) * hd};
+  }
+  return {k_pages, v_pages, (size_t)n_kv_heads * hd, kv_head * hd,
+          kv_head * hd};
+}
+
+// Stage keys [tile_start, tile_start + kTileK) of one kv head into shared
+// memory as f32.  Key `pos` lives at row pos % page_size of physical page
+// table_row[pos / page_size].  Thread i loads the 16-byte vector c of the
+// key's K row and the same vector of its V row, neighbouring threads on
+// neighbouring vectors; in the fused pool the two rows are the halves of one
+// contiguous 2*HD run, so a warp reads each key's K and V as that one run
+// (the GPU's form of the TPU kernel's one DMA per page for K and V).  Keys
+// at or past `n_keys` are not read and stage as zeros.
 template <typename T, int HD>
 __device__ __forceinline__ void load_kv_tile(
-    float (*ks)[HD + 1], float (*vs)[HD],
-    const T* __restrict__ k_pages, const T* __restrict__ v_pages,
+    float (*ks)[HD + 1], float (*vs)[HD], const KVPool<T>& pool,
     const int* __restrict__ table_row, int tile_start, int n_keys,
-    int page_size, int n_kv_heads, int kv_head) {
+    int page_size) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kVecPerRow = HD / kVec;
   for (int i = threadIdx.x; i < kTileK * kVecPerRow; i += kThreads) {
@@ -67,11 +101,12 @@ __device__ __forceinline__ void load_kv_tile(
     uint4 vraw = kraw;
     if (pos < n_keys) {
       const int page = __ldg(table_row + pos / page_size);
-      const size_t off =
-          ((size_t)page * page_size + pos % page_size) * n_kv_heads * HD +
-          (size_t)kv_head * HD + c;
-      kraw = __ldg(reinterpret_cast<const uint4*>(k_pages + off));
-      vraw = __ldg(reinterpret_cast<const uint4*>(v_pages + off));
+      const size_t row =
+          ((size_t)page * page_size + pos % page_size) * pool.row_stride + c;
+      kraw = __ldg(
+          reinterpret_cast<const uint4*>(pool.k + row + pool.k_head_off));
+      vraw = __ldg(
+          reinterpret_cast<const uint4*>(pool.v + row + pool.v_head_off));
     }
     const T* ke = reinterpret_cast<const T*>(&kraw);
     const T* ve = reinterpret_cast<const T*>(&vraw);

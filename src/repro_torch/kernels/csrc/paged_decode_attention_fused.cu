@@ -1,0 +1,31 @@
+// Paged flash-decode attention over the fused KV layout, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `paged_decode_attention_fused`
+// (src/repro/kernels/paged_decode_attention.py:303, pallas_call at :249): the
+// split kernel's math (paged_decode_attention.cu) over one head-interleaved
+// pool (n_pages, page_size, 2*Hkv, hd), K of kv head h at head 2h and V at
+// 2h+1.
+//
+// The TPU kernel transposes the pool to (n_pages, Hkv, 2, ps, hd) so that one
+// DMA per page fills a VMEM tile with K and V.  This kernel reads the pool as
+// it is stored: each staged key's K_h and V_h are one contiguous 2*hd run
+// (256 bytes in bf16 at hd 64), loaded by 16 neighbouring threads in 16-byte
+// vectors.  Scoring and normalisation are the split kernel's
+// (attend_tile / finish_rows), so on fuse_pages(k, v) it returns exactly the
+// split kernel's output on (k, v).
+//
+// Bound on an H100: bytes, as for the split kernel -- each live key's K and V
+// read once, about one FLOP per byte.
+#include "paged_decode_kernel.cuh"
+
+// C entry point, bound from Python with ctypes.  `n_kv_heads` is Hkv (the
+// pool holds 2*Hkv head rows).  Returns the launch's cudaError_t.
+extern "C" int paged_decode_attention_fused(
+    const void* q, const void* kv_pages, const void* block_tables,
+    const void* kv_lens, void* out, int B, int n_q_heads, int n_kv_heads,
+    int hd, int page_size, int max_pages, int dtype, float scale,
+    void* stream) {
+  return paged::decode_entry<true>(q, kv_pages, kv_pages, block_tables,
+                                   kv_lens, out, B, n_q_heads, n_kv_heads, hd,
+                                   page_size, max_pages, dtype, scale, stream);
+}

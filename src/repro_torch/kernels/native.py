@@ -27,6 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("paged_decode_attention", "paged_prefill_attention",
+           "paged_decode_attention_fused", "paged_prefill_attention_fused",
            "swap_gather_pages", "swap_scatter_pages",
            "swap_gather_pages_q8", "swap_scatter_pages_q8")
 NVCC_FLAGS = (

@@ -1,6 +1,6 @@
 """Public kernel entry points the model and the engine call: the port of the
-two paged split-layout attention wrappers of ``repro/kernels/ops.py:60-108``
-and of the four swap wrappers of ``:137-169``.
+paged attention wrappers of ``repro/kernels/ops.py:60-124`` (split and fused
+KV layouts) and of the four swap wrappers of ``:137-169``.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the CUDA
 kernel, or the call raises.  ``pages_per_tile`` and ``buffering_depth`` are
@@ -9,8 +9,12 @@ tile width, DMA semaphore depth) does not carry over.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.paged_decode_attention import paged_decode_attention
-from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_attention, paged_decode_attention_fused,
+)
+from repro_torch.kernels.paged_prefill_attention import (
+    paged_prefill_attention, paged_prefill_attention_fused,
+)
 from repro_torch.kernels.swap import (
     swap_gather_pages, swap_gather_pages_q8, swap_scatter_pages,
     swap_scatter_pages_q8,
@@ -26,11 +30,28 @@ def paged_prefill_chunk_attention(q, k_pages, v_pages, block_tables, kv_lens,
                                    q_offset)
 
 
+def paged_prefill_chunk_attention_fused(q, kv_pages, block_tables, kv_lens,
+                                        q_offset, *, pages_per_tile: int = 1,
+                                        buffering_depth: int = 1):
+    """``paged_prefill_chunk_attention`` over a fused head-interleaved pool
+    ``(n_pages, ps, 2*Hkv, hd)``: each key's K and V are read as one
+    contiguous run."""
+    return paged_prefill_attention_fused(q, kv_pages, block_tables, kv_lens,
+                                         q_offset)
+
+
 def paged_flash_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
                                  pages_per_tile: int = 1,
                                  buffering_depth: int = 1):
     """(B, Hq, hd) single-token decode vs a paged pool + block tables."""
     return paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens)
+
+
+def paged_flash_decode_attention_fused(q, kv_pages, block_tables, kv_lens, *,
+                                       pages_per_tile: int = 1,
+                                       buffering_depth: int = 1):
+    """``paged_flash_decode_attention`` over a fused head-interleaved pool."""
+    return paged_decode_attention_fused(q, kv_pages, block_tables, kv_lens)
 
 
 def gather_swap_pages(pages, ids):

@@ -1,18 +1,25 @@
-"""Paged flash-decode attention: a hand-written CUDA kernel for Hopper and
-its plain PyTorch version.
+"""Paged flash-decode attention: hand-written CUDA kernels for Hopper, for
+the split and the fused KV layouts, and their plain PyTorch versions.
 
-Replaces the TPU kernel ``paged_decode_attention``
-(``src/repro/kernels/paged_decode_attention.py``, ``pallas_call`` at :249):
-one query token per sequence, q ``(B, Hq, hd)``, against a physical page pool
-``(n_pages, page_size, Hkv, hd)`` addressed by ``block_tables (B,
-max_pages)``; keys at positions ``>= kv_len`` are masked.
+Replaces the TPU kernels ``paged_decode_attention`` and
+``paged_decode_attention_fused``
+(``src/repro/kernels/paged_decode_attention.py:282`` and ``:303``,
+``pallas_call`` at :249): one query token per sequence, q ``(B, Hq, hd)``,
+against a physical page pool addressed by ``block_tables (B, max_pages)``;
+keys at positions ``>= kv_len`` are masked.  The split layout keeps two
+pools ``(n_pages, page_size, Hkv, hd)``; the fused layout one pool
+``(n_pages, page_size, 2*Hkv, hd)`` with K of head h at 2h and V at 2h+1.
 
 Bound on an H100: bytes.  The function must read each sequence's live K and
 V once, ``2 * kv_len * Hkv * hd * 2`` bytes in bf16, for about one FLOP per
-byte.  The kernel (``csrc/paged_decode_attention.cu``) therefore runs one CTA
-per (sequence, kv head) holding the whole query group, so a K/V page is read
-once per group, with 16-byte coalesced loads of whole head rows and nothing
-read past ``kv_len``; its dot products are plain f32 FMA.
+byte.  The kernels (``csrc/paged_decode_attention.cu`` and
+``csrc/paged_decode_attention_fused.cu``, one body in
+``csrc/paged_decode_kernel.cuh``) therefore run one CTA per (sequence, kv
+head) holding the whole query group, so a K/V page is read once per group,
+with 16-byte coalesced loads of whole head rows and nothing read past
+``kv_len``; the dot products are plain f32 FMA.  The fused kernel
+reads each key's K and V as one contiguous run and otherwise computes what
+the split kernel computes, bit for bit.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.  The TPU kernel's ``pages_per_tile`` and
@@ -27,6 +34,7 @@ import torch
 
 from repro_torch.kernels import native
 from repro_torch.kernels.ref import (
+    paged_decode_attention_fused_ref as paged_decode_attention_fused_plain,
     paged_decode_attention_ref as paged_decode_attention_plain,
 )
 
@@ -34,6 +42,34 @@ MAX_GROUP = 8          # query heads per kv head one CTA holds (kMaxGroup)
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
+_FUSED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p]
+
+
+def _check(q, pools, block_tables, kv_lens, heads_per_kv):
+    """Validate a CUDA call on ``pools`` ({name: pool}, each holding
+    ``heads_per_kv`` head rows per kv head); returns (B, Hq, Hkv, hd,
+    page_size)."""
+    dev = q.device
+    B, Hq, hd = q.shape
+    n_pages, ps, H, _ = next(iter(pools.values())).shape
+    if H % heads_per_kv:
+        raise ValueError(f"fused pool has an odd head count {H}")
+    Hkv = H // heads_per_kv
+    native.check_attention_dims(q.dtype, Hq, Hkv, hd, dev)
+    if Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"query group {Hq // Hkv} > {MAX_GROUP}")
+    native.check_cuda_tensor("q", q, q.dtype, 3, dev)
+    for name, t in pools.items():
+        native.check_cuda_tensor(name, t, q.dtype, 4, dev)
+        if t.shape != (n_pages, ps, H, hd):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{(n_pages, ps, H, hd)}")
+    native.check_cuda_tensor("block_tables", block_tables, torch.int32, 2, dev)
+    native.check_cuda_tensor("kv_lens", kv_lens, torch.int32, 1, dev)
+    if block_tables.shape[0] != B or kv_lens.shape[0] != B:
+        raise ValueError("block_tables / kv_lens batch != q batch")
+    return B, Hq, Hkv, hd, ps
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens):
@@ -42,31 +78,41 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens):
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
                                             kv_lens)
-    dev = q.device
-    B, Hq, hd = q.shape
-    n_pages, ps, Hkv, _ = k_pages.shape
-    native.check_attention_dims(q.dtype, Hq, Hkv, hd, dev)
-    if Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"query group {Hq // Hkv} > {MAX_GROUP}")
-    native.check_cuda_tensor("q", q, q.dtype, 3, dev)
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        native.check_cuda_tensor(name, t, q.dtype, 4, dev)
-        if t.shape != (n_pages, ps, Hkv, hd):
-            raise ValueError(f"{name} shape {tuple(t.shape)} != "
-                             f"{(n_pages, ps, Hkv, hd)}")
-    native.check_cuda_tensor("block_tables", block_tables, torch.int32, 2, dev)
-    native.check_cuda_tensor("kv_lens", kv_lens, torch.int32, 1, dev)
-    if block_tables.shape[0] != B or kv_lens.shape[0] != B:
-        raise ValueError("block_tables / kv_lens batch != q batch")
+    B, Hq, Hkv, hd, ps = _check(
+        q, {"k_pages": k_pages, "v_pages": v_pages}, block_tables, kv_lens, 1)
     out = torch.empty_like(q)
     fn = native.load("paged_decode_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
             B, Hq, Hkv, hd, ps, block_tables.shape[1],
-            native.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd), native.stream_ptr(dev))
+            native.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
+            native.stream_ptr(q.device))
     native.raise_on_error("paged_decode_attention", rc)
     paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_decode_attention_fused(q, kv_pages, block_tables, kv_lens):
+    """q (B, Hq, hd); kv_pages (n_pages, page_size, 2*Hkv, hd) head-
+    interleaved; block_tables (B, max_pages) int32; kv_lens (B,) int32
+    -> (B, Hq, hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_fused_plain(q, kv_pages, block_tables,
+                                                  kv_lens)
+    B, Hq, Hkv, hd, ps = _check(q, {"kv_pages": kv_pages}, block_tables,
+                                kv_lens, 2)
+    out = torch.empty_like(q)
+    fn = native.load("paged_decode_attention_fused", _FUSED_ARGTYPES)
+    rc = fn(q.data_ptr(), kv_pages.data_ptr(), block_tables.data_ptr(),
+            kv_lens.data_ptr(), out.data_ptr(), B, Hq, Hkv, hd, ps,
+            block_tables.shape[1], native.DTYPE_CODES[q.dtype],
+            1.0 / math.sqrt(hd), native.stream_ptr(q.device))
+    native.raise_on_error("paged_decode_attention_fused", rc)
+    paged_decode_attention_fused.launches += 1
+    return out
+
+
+paged_decode_attention_fused.launches = 0

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the paged attention kernels (exact f32 math, no
-tiling) and of the INT8 host-page math: the port of
-``repro/kernels/ref.py:14-106`` and ``:143-167``.
+tiling), split and fused KV layouts, and of the INT8 host-page math: the
+port of ``repro/kernels/ref.py:14-140`` and ``:143-167``.
 
 They are the CPU path of the engine and the references the CUDA kernels are
 held against on the card.  Like the jnp oracles, a row with no valid key
@@ -94,6 +94,42 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, kv_lens):
         q, gather_pages(k_pages, block_tables),
         gather_pages(v_pages, block_tables), kv_lens,
     )
+
+
+def split_fused_pages(kv_pages):
+    """Un-interleave a fused head-interleaved pool: head axis
+    ``[K0,V0,K1,V1,...]`` -> split ``(k_pages, v_pages)`` strided views.
+
+    kv_pages: (n_pages, page_size, 2*Hkv, hd) -> two
+    (n_pages, page_size, Hkv, hd) tensors.  The fused layout is pure data
+    movement, so every fused plain version is the split one over these
+    views.
+    """
+    return kv_pages[:, :, 0::2], kv_pages[:, :, 1::2]
+
+
+def fuse_pages(k_pages, v_pages):
+    """Inverse of ``split_fused_pages``: interleave split K/V pools onto the
+    head axis (``(n_pages, ps, Hkv, hd)`` x2 -> ``(n_pages, ps, 2*Hkv, hd)``)."""
+    n_pages, ps, Hkv, hd = k_pages.shape
+    return torch.stack([k_pages, v_pages], dim=3).reshape(
+        n_pages, ps, 2 * Hkv, hd)
+
+
+def paged_prefill_attention_fused_ref(q, kv_pages, block_tables, kv_lens,
+                                      q_offset):
+    """Fused-layout paged chunked-prefill reference (un-interleave + split
+    reference)."""
+    k_pages, v_pages = split_fused_pages(kv_pages)
+    return paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
+                                       kv_lens, q_offset)
+
+
+def paged_decode_attention_fused_ref(q, kv_pages, block_tables, kv_lens):
+    """Fused-layout paged flash-decode reference."""
+    k_pages, v_pages = split_fused_pages(kv_pages)
+    return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                      kv_lens)
 
 
 def quantize_pages(pages):

@@ -1,16 +1,19 @@
-"""Serving entry point of the port: ``python -m repro_torch.launch.serve --full``.
+"""Serving entry point of the port: ``python -m repro_torch.launch.serve
+--full --kv-layout fused --policy aging --lprs --apc``.
 
-``repro/launch/serve.py`` on PyTorch: one replica, the chunked-prefill
-engine with paged KV (split layout), the pipelined loop, recompute or swap
-preemption (``--preemption-mode``), greedy sampling and the real scheduler
-(Aging/FCFS/SJF, APC, optional SLO tier and fault tolerance); or, with
-``--disagg``, a fleet of prefill and decode replicas with cross-replica KV
-handoff.  The model is full width on one NVIDIA GPU (``--full``) or tiny;
-weights are the port's seeded random init.  ``--device cpu`` runs the plain
-PyTorch path.
+``repro/launch/serve.py`` on PyTorch, the paper's full stack: one replica,
+the chunked-prefill engine with paged KV (``--kv-layout split`` or
+``fused``), the pipelined loop, recompute or swap preemption
+(``--preemption-mode``), greedy sampling and the real scheduler
+(Aging/FCFS/SJF, LPRS latency-targeted chunking with its predictor trained
+on this engine's own profiled round latencies, APC, optional SLO tier and
+fault tolerance); or, with ``--disagg``, a fleet of prefill and decode
+replicas with cross-replica KV handoff.  The model is full width on one
+NVIDIA GPU (``--full``) or tiny; weights are the port's seeded random init.
+``--device cpu`` runs the plain PyTorch path.
 
-Not ported yet, and refused with ``NotImplementedError``: ``--lprs``,
-``--dense-kv``, ``--kv-layout fused`` and ``--nan-guard``.
+Not ported yet, and refused with ``NotImplementedError``: ``--dense-kv`` and
+``--nan-guard``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,10 @@ import torch
 
 from repro_torch.configs import get_config, tiny_config
 from repro_torch.core.apc import APCConfig
+from repro_torch.core.lprs import LPRSConfig
+from repro_torch.core.predictor import (
+    LatencyPredictor, PredictorConfig, bucket_and_downsample,
+)
 from repro_torch.core.scheduler import ChunkedPrefillScheduler, SchedulerConfig
 from repro_torch.core.slo import SLOConfig
 from repro_torch.tenancy.tenants import FairnessConfig, TenantSpec
@@ -38,6 +45,45 @@ from repro_torch.engine.workload import (
 COLOCATED_FAULT_SITES = ("replica_step_crash", "slow_round_ms")
 PORTED_FAULT_SITES = COLOCATED_FAULT_SITES + (
     "handoff_drop", "handoff_stall", "swap_gather_fail", "host_oom")
+
+
+def profile_engine(model_cfg, engine: TorchEngine, *, kv_pool=None,
+                   n_requests: int = 48, budget: int = 128, seed: int = 0):
+    """The paper's offline profiling run (§3.2.1) on REAL latencies: serve a
+    ShareGPT-like workload under the static token-budget FCFS scheduler and
+    return ``(features (n, 16), wall ms (n,))``, one row per round.  With
+    ``kv_pool`` (the pool the engine is bound to) the run books its blocks
+    there and then resets the pool, so that the serve that follows starts
+    from an empty prefix cache and reports only its own counters."""
+    reqs = sharegpt_like(WorkloadSpec(
+        n_requests=n_requests, inter_arrival_s=0.005, max_context=256,
+        max_new_tokens=32, seed=seed,
+    ))
+    attach_prompt_tokens(reqs, model_cfg.vocab_size, seed=seed)
+    sched = ChunkedPrefillScheduler(
+        SchedulerConfig(policy="fcfs", token_budget=budget,
+                        max_seqs=engine.cfg.n_slots)
+    )
+    res = serve(reqs, sched, engine, kv_pool=kv_pool, collect_samples=True)
+    if kv_pool is not None:
+        kv_pool.reset()
+    return res.samples
+
+
+def train_predictor(feats, lats, *, epochs: int = 120) -> LatencyPredictor:
+    """Bucket + downsample on scheduled_tokens (column 12) and fit the MLP;
+    with ``profile_engine`` this is ``repro``'s
+    ``profile_and_train_predictor``, in two halves that can be timed apart.
+
+    The predictor runs on the CPU, beside the rest of the scheduler: the
+    pipelined loop calls ``predict()`` while it schedules round N+1 and round
+    N is still running on the card, and a forward pass on the card's stream
+    would queue behind round N -- its read-back would hold the host until
+    round N ends and undo the overlap."""
+    keep, wts = bucket_and_downsample(feats[:, 12])
+    pred = LatencyPredictor(PredictorConfig(epochs=epochs), device="cpu")
+    pred.fit(feats[keep], lats[keep], sample_weights=wts)
+    return pred
 
 
 def robustness_from_args(args):
@@ -63,9 +109,7 @@ def robustness_from_args(args):
 
 def _refuse_unported(args) -> None:
     unported = [
-        (args.lprs, "--lprs (the LPRS latency predictor)", 11),
         (args.dense_kv, "--dense-kv (dense KV slots)", 9),
-        (args.kv_layout != "split", "--kv-layout fused", 6),
         (args.nan_guard, "--nan-guard", 8),
     ]
     for on, what, item in unported:
@@ -85,14 +129,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--token-budget", type=int, default=128)
     ap.add_argument("--n-requests", type=int, default=32)
     ap.add_argument("--interval", type=float, default=0.02)
-    ap.add_argument("--lprs", action="store_true")
+    ap.add_argument("--lprs", action="store_true",
+                    help="latency-targeted chunking: profile this engine, "
+                         "train the latency predictor, serve with LPRS")
+    ap.add_argument("--target-ms", type=float, default=0.0,
+                    help="LPRS target round latency in ms (0 = 30.0)")
     ap.add_argument("--apc", action="store_true")
     ap.add_argument("--dense-kv", action="store_true")
     ap.add_argument("--sync-engine", action="store_true",
                     help="synchronous round loop instead of the overlapped "
                          "schedule/execute pipeline (A/B baseline; outputs "
                          "are identical under greedy sampling)")
-    ap.add_argument("--kv-layout", default="split", choices=["split", "fused"])
+    ap.add_argument("--kv-layout", default="split", choices=["split", "fused"],
+                    help="paged KV pool layout: 'split' keeps separate K and "
+                         "V pools; 'fused' interleaves K/V on the head axis "
+                         "so each key's K and V are one contiguous run "
+                         "(greedy outputs are identical)")
     ap.add_argument("--preemption-mode", default="recompute",
                     choices=["recompute", "swap"],
                     help="KV-pressure eviction strategy: 'recompute' discards "
@@ -156,10 +208,11 @@ def _model_cfg(args):
 def _engine_cfg(args) -> EngineConfig:
     return EngineConfig(n_slots=16, max_context=512,
                         pipelined=not args.sync_engine,
+                        kv_layout=args.kv_layout,
                         preemption_mode=args.preemption_mode)
 
 
-def _workload(args, model_cfg):
+def workload(args, model_cfg):
     reqs = sharegpt_like(WorkloadSpec(
         n_requests=args.n_requests, inter_arrival_s=args.interval,
         max_context=256, max_new_tokens=48, seed=1,
@@ -168,14 +221,15 @@ def _workload(args, model_cfg):
     return reqs
 
 
-def build(args, *, host_kv_dtype: str = "auto"):
-    """(engine, scheduler, kv_pool, requests) for the parsed arguments: the
-    engine is bound to the pool and warmed up, every kernel built.
-    ``host_kv_dtype="int8"`` stages swapped pages as INT8 (an API option, as
-    in the JAX package: the CLI has no flag for it)."""
-    _refuse_unported(args)
-    model_cfg = _model_cfg(args)
-    engine = TorchEngine(model_cfg, _engine_cfg(args), device=args.device)
+def build_scheduler(args, predictor=None) -> ChunkedPrefillScheduler:
+    """The colocated scheduler the arguments ask for; ``--lprs`` needs the
+    trained ``predictor``."""
+    lprs_cfg = None
+    if args.lprs:
+        target = args.target_ms
+        if target <= 0:
+            target = 30.0
+        lprs_cfg = LPRSConfig(target_latency_ms=target, search_delta=32)
 
     fairness_cfg = None
     slo_cfg = None
@@ -189,21 +243,43 @@ def build(args, *, host_kv_dtype: str = "auto"):
         ),))
         slo_cfg = SLOConfig()
 
-    sched = ChunkedPrefillScheduler(SchedulerConfig(
-        policy=args.policy, alpha=args.alpha, beta=args.beta,
-        token_budget=args.token_budget, max_seqs=16,
-        apc=APCConfig(c_max=4, l_min=16) if args.apc else None,
-        fairness=fairness_cfg,
-        slo=slo_cfg,
-    ))
-    reqs = _workload(args, model_cfg)
+    return ChunkedPrefillScheduler(
+        SchedulerConfig(
+            policy=args.policy, alpha=args.alpha, beta=args.beta,
+            token_budget=args.token_budget, max_seqs=16,
+            lprs=lprs_cfg,
+            apc=APCConfig(c_max=4, l_min=16) if args.apc else None,
+            fairness=fairness_cfg,
+            slo=slo_cfg,
+        ),
+        predictor=predictor if args.lprs else None,
+    )
+
+
+def build(args, *, host_kv_dtype: str = "auto"):
+    """(engine, scheduler, kv_pool, requests) for the parsed arguments: the
+    engine is bound to the pool and warmed up, every kernel built; with
+    ``--lprs`` the engine is profiled on that pool and the scheduler holds
+    the predictor trained on it.  ``host_kv_dtype="int8"`` stages swapped
+    pages as INT8 (an API option, as in the JAX package: the CLI has no flag
+    for it)."""
+    _refuse_unported(args)
+    model_cfg = _model_cfg(args)
+    engine = TorchEngine(model_cfg, _engine_cfg(args), device=args.device)
     kv_pool = pool_for_model(model_cfg, n_blocks=args.kv_blocks,
                              enable_prefix_cache=args.prefix_cache,
                              host_kv_dtype=host_kv_dtype)
     # bind first: warm-up runs against the physical pool serving will use
     engine.bind_kv_pool(kv_pool)
     engine.warmup()
-    return engine, sched, kv_pool, reqs
+    predictor = None
+    if args.lprs:
+        feats, lats = profile_engine(model_cfg, engine, kv_pool=kv_pool)
+        predictor = train_predictor(feats, lats)
+        print(f"predictor trained on {len(lats)} real samples: "
+              f"{predictor.evaluate(feats, lats)}")
+    sched = build_scheduler(args, predictor)
+    return engine, sched, kv_pool, workload(args, model_cfg)
 
 
 def build_fleet(args):
@@ -235,7 +311,7 @@ def build_fleet(args):
         warmup=True,
         device=args.device,
     )
-    return router, _workload(args, model_cfg)
+    return router, workload(args, model_cfg)
 
 
 def _print_report(row) -> None:
@@ -270,7 +346,7 @@ def run_disagg(args):
     row = res.report.row()
     print(f"\n=== {args.arch}{'' if args.full else '-tiny'} | DISAGG "
           f"{args.n_prefill}P+{args.n_decode}D policy={args.policy} "
-          f"kv=paged/split loop={'sync' if args.sync_engine else 'pipelined'} "
+          f"kv=paged/{args.kv_layout} loop={'sync' if args.sync_engine else 'pipelined'} "
           f"cost={'model' if args.handoff_cost else 'always'} ===")
     print(f"finished {res.report.n_finished}/{res.report.n_total} "
           f"in {res.wall_s:.2f}s  ({res.rounds} rounds over "
@@ -386,7 +462,8 @@ def main(argv=None):
     dev = engine.device
     print(f"\n=== {args.arch}{'' if args.full else '-tiny'} on "
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}"
-          f" | policy={args.policy} apc={args.apc} kv=paged/split "
+          f" | policy={args.policy} lprs={args.lprs} apc={args.apc} "
+          f"kv=paged/{args.kv_layout} "
           f"loop={'sync' if args.sync_engine else 'pipelined'} "
           f"prefix_cache={args.prefix_cache} "
           f"preempt={args.preemption_mode} ===")

@@ -1,6 +1,6 @@
 """Decoder-only dense transformer LM: parameter init and the engine's paged
 chunked step (the port of ``repro/models/transformer.py:108-123`` and
-``:292-408``, split KV layout).
+``:292-408``, split and fused KV layouts).
 
 Parameters are a dict mirroring the JAX pytree, except that ``"layers"`` is
 a list with one dict per layer instead of arrays with a stacked leading
@@ -73,7 +73,10 @@ class TransformerLM:
         """One chunked-prefill round against a paged KV cache (vLLM layout).
 
         tokens (B, C) right-padded; kv_pages {"k", "v"} each
-        ``(L, n_pages, page_size, Hkv, hd)``; lens (B,) int32 tokens already
+        ``(L, n_pages, page_size, Hkv, hd)`` (split layout) or {"kv"}
+        ``(L, n_pages, page_size, 2*Hkv, hd)`` with heads ``[K0,V0,K1,V1,
+        ...]`` (``kv_layout="fused"``: the round's new K/V interleave into
+        ONE scatter per layer); lens (B,) int32 tokens already
         cached; chunk_lens (B,) int32 tokens this round (decode 1, prefill
         its chunk, idle 0); block_tables (B, max_pages) int32.  New K/V for
         position ``p`` of slot ``b`` goes to flat row
@@ -83,17 +86,15 @@ class TransformerLM:
         The pool is updated IN PLACE (JAX returned a new one and donated the
         old buffer); returns the logits at each slot's last chunk position.
         A bucket of C == 1 runs the paged decode kernel, C > 1 the paged
-        prefill kernel (decode slots of a mixed round included).
+        prefill kernel (decode slots of a mixed round included), each in the
+        pool's layout.
         """
-        if kv_layout != "split":
-            raise NotImplementedError(
-                "kv_layout='fused' is not ported yet (ROADMAP.md, queue 1, "
-                "item 6)")
+        assert kv_layout in ("split", "fused"), kv_layout
         cfg = self.cfg
         assert not cfg.sliding_window, "engine demo path supports linear caches"
+        fused = kv_layout == "fused"
         B, C = tokens.shape
-        k_pool, v_pool = kv_pages["k"], kv_pages["v"]
-        n_phys, ps = k_pool.shape[1:3]
+        n_phys, ps = (kv_pages["kv"] if fused else kv_pages["k"]).shape[1:3]
         dev = tokens.device
         positions = lens[:, None] + torch.arange(C, dtype=torch.int32,
                                                  device=dev)[None, :]
@@ -119,29 +120,67 @@ class TransformerLM:
             # (all-masked softmax) and a NaN parked in shared storage would
             # poison other rows' masked-position 0*V products.  Zeroing also
             # makes the duplicate sink indices of index_put_ harmless: every
-            # write to that row carries the same value.
+            # write to that row carries the same value.  Both halves are
+            # zeroed before the fused layout interleaves them.
             k_new = torch.where(keep, k_new, 0.0)
             v_new = torch.where(keep, v_new, 0.0)
-            ck, cv = k_pool[l], v_pool[l]                # (n_phys, ps, Hkv, hd)
-            ck.view(n_phys * ps, *ck.shape[2:]).index_put_(
-                (write_pos,), k_new.reshape(B * C, *k_new.shape[2:]))
-            cv.view(n_phys * ps, *cv.shape[2:]).index_put_(
-                (write_pos,), v_new.reshape(B * C, *v_new.shape[2:]))
-            if C == 1:
-                attn = kops.paged_flash_decode_attention(
-                    q[:, 0], ck, cv, block_tables, kv_lens,
-                    pages_per_tile=pages_per_tile,
-                    buffering_depth=buffering_depth,
-                )[:, None]
+            if fused:
+                attn = self._attend_fused(
+                    kv_pages["kv"][l], q, k_new, v_new, write_pos,
+                    block_tables, kv_lens, lens, pages_per_tile,
+                    buffering_depth)
             else:
-                attn = kops.paged_prefill_chunk_attention(
-                    q, ck, cv, block_tables, kv_lens, lens,
-                    pages_per_tile=pages_per_tile,
-                    buffering_depth=buffering_depth,
-                )
+                attn = self._attend_split(
+                    kv_pages["k"][l], kv_pages["v"][l], q, k_new, v_new,
+                    write_pos, block_tables, kv_lens, lens, pages_per_tile,
+                    buffering_depth)
             y = x + L.attn_output(lp["attn"], attn, cfg)
             x = _block_ffn(lp, y, cfg)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         last = (chunk_lens - 1).clamp(min=0).long()
         x_last = x[torch.arange(B, device=dev), last]            # (B, D)
         return self._unembed(params, x_last)
+
+    @staticmethod
+    def _attend_split(ck, cv, q, k_new, v_new, write_pos, block_tables,
+                      kv_lens, lens, pages_per_tile, buffering_depth):
+        """Scatter one layer's new K and V into the split pools
+        ``(n_phys, ps, Hkv, hd)`` and attend through them."""
+        B, C = q.shape[:2]
+        n_rows = ck.shape[0] * ck.shape[1]
+        ck.view(n_rows, *ck.shape[2:]).index_put_(
+            (write_pos,), k_new.reshape(B * C, *k_new.shape[2:]))
+        cv.view(n_rows, *cv.shape[2:]).index_put_(
+            (write_pos,), v_new.reshape(B * C, *v_new.shape[2:]))
+        if C == 1:
+            return kops.paged_flash_decode_attention(
+                q[:, 0], ck, cv, block_tables, kv_lens,
+                pages_per_tile=pages_per_tile,
+                buffering_depth=buffering_depth,
+            )[:, None]
+        return kops.paged_prefill_chunk_attention(
+            q, ck, cv, block_tables, kv_lens, lens,
+            pages_per_tile=pages_per_tile, buffering_depth=buffering_depth,
+        )
+
+    @staticmethod
+    def _attend_fused(ckv, q, k_new, v_new, write_pos, block_tables, kv_lens,
+                      lens, pages_per_tile, buffering_depth):
+        """Interleave one layer's new K/V onto the head axis, write them
+        with ONE scatter into the fused pool ``(n_phys, ps, 2*Hkv, hd)``
+        and attend through it."""
+        B, C, Hkv, hd = k_new.shape
+        kv_new = torch.stack([k_new, v_new], dim=3).reshape(B, C, 2 * Hkv, hd)
+        n_rows = ckv.shape[0] * ckv.shape[1]
+        ckv.view(n_rows, 2 * Hkv, hd).index_put_(
+            (write_pos,), kv_new.reshape(B * C, 2 * Hkv, hd))
+        if C == 1:
+            return kops.paged_flash_decode_attention_fused(
+                q[:, 0], ckv, block_tables, kv_lens,
+                pages_per_tile=pages_per_tile,
+                buffering_depth=buffering_depth,
+            )[:, None]
+        return kops.paged_prefill_chunk_attention_fused(
+            q, ckv, block_tables, kv_lens, lens,
+            pages_per_tile=pages_per_tile, buffering_depth=buffering_depth,
+        )

@@ -93,6 +93,7 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch.launch.serve, repro_torch.engine.engine\n"
         "import repro_torch.weights, repro_torch.kernels.ops\n"
         "import repro_torch.disagg, repro_torch.kernels.swap\n"
+        "import repro_torch.core.predictor\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
@@ -149,9 +150,7 @@ def test_serve_cli_chaos_plan_uses_only_ported_sites(seed, disagg):
     assert "nan_logits" not in sites
 
 
-@pytest.mark.parametrize("flags", [
-    ["--lprs"], ["--dense-kv"], ["--kv-layout", "fused"], ["--nan-guard"],
-])
+@pytest.mark.parametrize("flags", [["--dense-kv"], ["--nan-guard"]])
 def test_serve_cli_refuses_unported_paths(flags):
     args = serve_cli.build_parser().parse_args(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
