@@ -6,9 +6,8 @@
 Phases, each of which raises (exit code != 0) on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``).
-2. build: compile every CUDA kernel of the serving paths from ``csrc/``
-   (eight libraries, one ``nvcc`` per source, in parallel) and print
-   ptxas's report.
+2. build: compile every CUDA kernel from ``csrc/`` (eleven libraries, one
+   ``nvcc`` per source, in parallel) and print ptxas's report of each.
 3. kernels: each attention kernel against its plain PyTorch version on the card, at
    the main path's shapes (full-width qwen1.5-0.5b: B=16, Hq=Hkv=16, hd=64,
    page 16, ragged kv_lens up to 512 through permuted block tables, every
@@ -74,9 +73,52 @@ Phases, each of which raises (exit code != 0) on failure:
    LPRS chunk searches, the mean and p99 chunk sizes and the share of
    rounds over the target are printed against phase 12's static run, not
    gated.
+14. dense kernels: ``chunked_prefill_attention`` on the dense serve cache
+   ``(16, 513, 16, 64)`` as the engine passes it (the ``[:, :-1]`` view,
+   not contiguous), ragged kv_lens <= 512, every bucket Sq in {1, 16, 32,
+   64, 128, 256}, and GQA 32/8 at hd 64 and 128; ``decode_attention`` at
+   B=16, S=512, 16/16, hd 64, GQA, and B=4, S=32,768, 32/8, hd 128
+   (qwen3-8b's attention widths).  Phase 3's tolerances against the plain
+   versions; on the sink views each output BITWISE equal to the paged
+   kernel's on the same keys laid into pages; a NaN key reaches its row's
+   output and no other.  Timed like phase 3 (``library_ms``: SDPA over the
+   same cache with the same mask).  Then the same NaN check through the
+   four paged kernels.
+15. fused SwiGLU: ``fused_swiglu`` on full-width qwen1.5-0.5b's layer-0
+   FFN weights (D=1024, F=2816) at M in {16, 256, 2048}, bf16 and f32, and
+   at qwen3-8b's widths (D=4096, F=12,288, seeded) at M=256 in bf16: f32
+   within 1e-4 of ``fused_swiglu_plain``; bf16: the kernel's hidden values
+   (read back through a selecting down projection) each within one bf16
+   step of the float64 hidden, its output within one output rounding step
+   of the plain down product of those values and of ``fused_swiglu_plain``
+   plus the move of the hidden values that differ, and within 5 x 2e-2 of
+   ``fused_swiglu_ref``; hidden-rounding counts printed.  Timed against the
+   plain version and ``library_ms`` (``torch.matmul`` and ``F.silu``, a
+   yardstick).
+16. standalone entry points: ``ops.flash_decode_attention`` and
+   ``ops.swiglu_ffn`` (no serve path calls their kernels, as in the
+   reference) launch exactly their kernels; their counts are the JSON's.
+17. serve, dense: ``--full --dense-kv``: every request finishes,
+   ``chunked_prefill_attention`` runs exactly 24 times per round at every
+   bucket (C = 1 included) and no other kernel runs.
+18. serve, dense swap: ``--full --dense-kv --preemption-mode swap
+   --kv-blocks 48``: swap-outs happen and are all restored by slot-row
+   copies (no swap kernel), nothing stays staged, the pool's invariants
+   hold.  Greedy tokens of 17-18 against phase 5's are printed, not gated.
+19. NaN guard: ``--full --nan-guard`` on the split, fused and dense engines
+   under ``serve(robustness=...)`` with a ``nan_logits`` fault at the
+   second decode: exactly the victim is shed (``numerics``), every other
+   request finishes, nothing stays poisoned and every KV cache value is
+   finite at the end.
 
 The second-to-last line is a JSON object listing every kernel with its
 numbers; the last line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --turns OTHER_CHECKOUT
+
+times phases 3 and 10 (the four paged attention kernels) of another
+checkout (say the parent commit, unpacked with ``git archive``) and of this
+one in turns, other / this / this / other, each in a process of its own.
 """
 from __future__ import annotations
 
@@ -701,13 +743,18 @@ def check_outputs(res, reqs, vocab_size):
 
 def kernel_fns():
     from repro_torch.kernels import swap as sw
+    from repro_torch.kernels.chunked_prefill_attention import (
+        chunked_prefill_attention)
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.fused_swiglu import fused_swiglu
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention, paged_decode_attention_fused)
     from repro_torch.kernels.paged_prefill_attention import (
         paged_prefill_attention, paged_prefill_attention_fused)
     fns = {n: getattr(sw, n) for n in SWAP_KERNELS}
     for fn in (paged_decode_attention, paged_prefill_attention,
-               paged_decode_attention_fused, paged_prefill_attention_fused):
+               paged_decode_attention_fused, paged_prefill_attention_fused,
+               chunked_prefill_attention, decode_attention, fused_swiglu):
         fns[fn.__name__] = fn
     return fns
 
@@ -1044,6 +1091,605 @@ def lprs_phase(torch, engine, kv_pool, static):
             f"{r.report.ttft['mean'] * 1e3:.1f} ms")
 
 
+# -- phase 14: the dense attention kernels -------------------------------------
+def dense_cache(torch, gen, *, B, S, Hkv, hd, dtype, sink=True):
+    """Random K/V caches; with ``sink``, ``(B, S + 1, Hkv, hd)`` tensors
+    returned as the engine's ``[:, :-1]`` views (not contiguous: batch stride
+    ``(S + 1) * Hkv * hd``), else contiguous ``(B, S, Hkv, hd)``."""
+    rows = S + 1 if sink else S
+    k, v = (torch.randn((B, rows, Hkv, hd), generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    return (k[:, :-1], v[:, :-1]) if sink else (k, v)
+
+
+def as_pages(torch, gen, k, v, ps):
+    """The same keys laid into split page pools: sequence b's keys [p*ps,
+    (p+1)*ps) on page ``tables[b, p]``, a permutation of the pool's pages;
+    returns (k_pages, v_pages, tables)."""
+    B, S = k.shape[:2]
+    n = S // ps
+    tables = torch.randperm(B * n, generator=gen, device="cuda").reshape(B, n)
+    pools = []
+    for cache in (k, v):
+        pool = torch.empty((B * n + 1, ps) + tuple(cache.shape[2:]),
+                           dtype=cache.dtype, device="cuda")
+        pool[tables.flatten().long()] = cache.reshape(B * n, ps,
+                                                      *cache.shape[2:])
+        pools.append(pool)
+    return (*pools, tables.to(torch.int32).contiguous())
+
+
+def poison_check(torch, kernel, args, key_args, b, pos):
+    """NaN at key ``pos`` of sequence ``b`` (K and V, every head) must reach
+    that sequence's output and no other: the NaN guard's trap.
+    ``key_args`` are the indices in ``args`` of the K and V tensors, indexed
+    [b, pos] (dense caches)."""
+    clean = kernel(*args)
+    args = list(args)
+    for i in key_args:
+        args[i] = args[i].clone()
+        args[i][b, pos] = float("nan")
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    require(bool(torch.isnan(got[b]).any()),
+            "a NaN key of a valid position did not reach the output")
+    others = [i for i in range(got.shape[0]) if i != b]
+    require(same_bits(got[others], clean[others]),
+            "a NaN key changed another sequence's output")
+
+
+def dense_prefill_case(torch, timer, gen, *, B, Sq, Hq, Hkv, hd, S, dtype,
+                       timed, ps=16):
+    """``chunked_prefill_attention`` on the engine's ``cache[:, :-1]`` view
+    against its plain version, and bitwise against the paged prefill kernel
+    on the same keys laid into pages."""
+    from repro_torch.kernels.chunked_prefill_attention import (
+        chunked_prefill_attention, chunked_prefill_attention_plain)
+    from repro_torch.kernels.paged_prefill_attention import (
+        paged_prefill_attention)
+    import torch.nn.functional as F
+
+    dev = "cuda"
+    k, v = dense_cache(torch, gen, B=B, S=S, Hkv=Hkv, hd=hd, dtype=dtype)
+    require(not k.is_contiguous(), "the sink view should not be contiguous")
+    q = torch.randn((B, Sq, Hq, hd), generator=gen, device=dev).to(dtype)
+    q_offset, kv_lens = chunk_lens_for(gen, B, Sq, S, dev)
+    args = (q, k, v, kv_lens, q_offset)
+    got = chunked_prefill_attention(*args)
+    want = chunked_prefill_attention_plain(*args)
+    torch.cuda.synchronize()
+    live = kv_lens > 0
+    require(bool((got[~live] == 0).all()),
+            "chunked prefill kernel: a row with no valid key is not 0")
+    err = max_err(got, want, live)
+    kp, vp, tables = as_pages(torch, gen, k, v, ps)
+    require(same_bits(got, paged_prefill_attention(q, kp, vp, tables, kv_lens,
+                                                   q_offset)),
+            "chunked prefill kernel differs from the paged prefill kernel")
+    del kp, vp
+    if not timed:
+        return {"max_abs_err": err}
+    poison_check(torch, chunked_prefill_attention, args, (1, 2), 2,
+                 int(q_offset[2]) - 1)
+    pos_q = q_offset[:, None].long() + torch.arange(Sq, device=dev)[None, :]
+    pos_k = torch.arange(S, device=dev)
+    mask = ((pos_k[None, None, :] <= pos_q[:, :, None])
+            & (pos_k[None, None, :] < kv_lens[:, None, None].long()))[:, None]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ms = timer(lambda: chunked_prefill_attention(*args))
+    plain_ms = timer(lambda: chunked_prefill_attention_plain(*args))
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv))
+    vis = torch.minimum(kv_lens[:, None].long(), pos_q + 1).clamp(min=0)
+    esz = q.element_size()
+    n_bytes = (2 * q.numel() * esz + 2 * int(kv_lens.sum()) * Hkv * hd * esz
+               + 4 * 2 * B)
+    n_flops = 4 * int(vis.sum()) * Hq * hd
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "shape": f"B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} hd={hd} cache "
+                     f"({B}, {S + 1}, {Hkv}, {hd})[:, :-1] kv_lens<={S}"}
+
+
+def dense_decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, S, dtype, timed,
+                      sink=True, ps=16):
+    """``decode_attention`` against its plain version and, on a sink view,
+    bitwise against the paged decode kernel on the same keys in pages."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention)
+    import torch.nn.functional as F
+
+    dev = "cuda"
+    k, v = dense_cache(torch, gen, B=B, S=S, Hkv=Hkv, hd=hd, dtype=dtype,
+                       sink=sink)
+    q = torch.randn((B, Hq, hd), generator=gen, device=dev).to(dtype)
+    kv_lens = torch.randint(1, S + 1, (B,), generator=gen,
+                            device=dev).to(torch.int32)
+    kv_lens[0], kv_lens[1] = 0, S
+    args = (q, k, v, kv_lens)
+    got = decode_attention(*args)
+    want = decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    live = kv_lens > 0
+    require(bool((got[~live] == 0).all()),
+            "decode kernel: a row with no valid key is not 0")
+    err = max_err(got, want, live)
+    if sink:
+        kp, vp, tables = as_pages(torch, gen, k, v, ps)
+        require(same_bits(got, paged_decode_attention(q, kp, vp, tables,
+                                                      kv_lens)),
+                "decode kernel differs from the paged decode kernel")
+        del kp, vp
+    if not timed:
+        return {"max_abs_err": err}
+    poison_check(torch, decode_attention, args, (1, 2), 1, S - 1)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < kv_lens[:, None].long())[:, None, None, :]
+    q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    ms = timer(lambda: decode_attention(*args))
+    plain_ms = timer(lambda: decode_attention_plain(*args))
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        q4, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv))
+    keys = int(kv_lens.sum())
+    esz = q.element_size()
+    n_bytes = 2 * q.numel() * esz + 2 * keys * Hkv * hd * esz + 4 * B
+    b_ms, b_by = bound_ms(n_bytes, 4 * keys * Hq * hd)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "shape": f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} kv_lens<={S} "
+                     f"(sum {keys}){' sink view' if sink else ''}"}
+
+
+def paged_poison_phase(torch):
+    """The shared normalisation lets a NaN key through the paged kernels of
+    both layouts too (the NaN guard serves them)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention, paged_decode_attention_fused)
+    from repro_torch.kernels.paged_prefill_attention import (
+        paged_prefill_attention, paged_prefill_attention_fused)
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    B, S, H, hd, ps = 4, 512, 16, 64, 16
+    k, v = dense_cache(torch, gen, B=B, S=S, Hkv=H, hd=hd,
+                       dtype=torch.bfloat16, sink=False)
+    q = torch.randn((B, 16, H, hd), generator=gen, device="cuda").to(k.dtype)
+    q_offset, kv_lens = chunk_lens_for(gen, B, 16, S, "cuda")
+    q0 = q[:, 0].contiguous()
+    b, pos = 2, int(q_offset[2]) - 1            # a prefix key of row 2
+    for poisoned in (False, True):
+        if poisoned:
+            k[b, pos] = float("nan")
+            v[b, pos] = float("nan")
+        kp, vp, tables = as_pages(torch, gen, k, v, ps)
+        kvp = ref.fuse_pages(kp, vp)
+        outs = [paged_prefill_attention(q, kp, vp, tables, kv_lens, q_offset),
+                paged_prefill_attention_fused(q, kvp, tables, kv_lens, q_offset),
+                paged_decode_attention(q0, kp, vp, tables, kv_lens),
+                paged_decode_attention_fused(q0, kvp, tables, kv_lens)]
+        torch.cuda.synchronize()
+        if not poisoned:
+            clean = outs
+            continue
+        for name, got, c in zip(("prefill split", "prefill fused",
+                                 "decode split", "decode fused"), outs, clean):
+            require(bool(torch.isnan(got[b]).all()),
+                    f"paged {name}: a NaN key did not reach every output of "
+                    "its sequence")
+            others = [i for i in range(B) if i != b]
+            require(same_bits(got[others], c[others]),
+                    f"paged {name}: a NaN key changed another sequence")
+    log("  a NaN key reaches its sequence's output (and no other) through "
+        "the paged split and fused kernels")
+
+
+def dense_kernel_phase(torch):
+    """Phase 14: both dense attention kernels at the dense serve shapes and
+    a GQA shape, each timed at the main-path shape; decode also at one
+    long-cache shape."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    timer = Timer(torch)
+    bf16, f32 = torch.bfloat16, torch.float32
+    qwen = dict(B=16, Hq=16, Hkv=16, hd=64, S=512)      # the dense serve slots
+    gqa = dict(qwen, Hq=32, Hkv=8)
+    gqa128 = dict(gqa, hd=128)
+    results = {}
+    buckets = {}
+    for Sq in (1, 16, 32, 64, 128, 256):
+        r = dense_prefill_case(torch, timer, gen, Sq=Sq, dtype=bf16,
+                               timed=True, **qwen)
+        buckets[Sq] = r
+        log(f"  chunked prefill qwen bf16 {r['shape']}: err "
+            f"{r['max_abs_err']:.3e} kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for dtype, shape, Sq, name in ((bf16, gqa, 64, "gqa bf16 Sq=64"),
+                                   (bf16, gqa128, 64, "gqa hd=128 bf16 Sq=64"),
+                                   (bf16, gqa128, 1, "gqa hd=128 bf16 Sq=1"),
+                                   (f32, qwen, 128, "qwen f32 Sq=128")):
+        r = dense_prefill_case(torch, timer, gen, Sq=Sq, dtype=dtype,
+                               timed=False, **shape)
+        log(f"  chunked prefill {name}: err {r['max_abs_err']:.3e}")
+    log("  every chunked prefill output bitwise equal to the paged prefill "
+        "kernel's on the same keys in pages; a NaN key reaches its row")
+    pre = dict(buckets[128])
+    pre["max_abs_err"] = max(b["max_abs_err"] for b in buckets.values())
+    results["chunked_prefill_attention"] = pre
+
+    dec = dense_decode_case(torch, timer, gen, dtype=bf16, timed=True, **qwen)
+    log(f"  decode qwen bf16 {dec['shape']}: err {dec['max_abs_err']:.3e} "
+        f"kernel {dec['ms']:.4f} ms plain {dec['plain_ms']:.4f} ms sdpa "
+        f"{dec['library_ms']:.4f} ms bound {dec['bound_ms']:.4f} ms "
+        f"({dec['bound_by']})")
+    worst = dec["max_abs_err"]
+    for dtype, shape, name in ((bf16, gqa, "gqa bf16"),
+                               (bf16, gqa128, "gqa hd=128 bf16"),
+                               (f32, qwen, "qwen f32")):
+        r = dense_decode_case(torch, timer, gen, dtype=dtype, timed=False,
+                              **shape)
+        worst = max(worst, r["max_abs_err"])
+        log(f"  decode {name}: err {r['max_abs_err']:.3e}")
+    # qwen3-8b's attention widths over a 32k cache: 268 MB per tensor
+    long = dense_decode_case(torch, timer, gen, B=4, Hq=32, Hkv=8, hd=128,
+                             S=32768, dtype=bf16, timed=True, sink=False)
+    worst = max(worst, long["max_abs_err"])
+    log(f"  decode long bf16 {long['shape']}: err {long['max_abs_err']:.3e} "
+        f"kernel {long['ms']:.4f} ms plain {long['plain_ms']:.4f} ms sdpa "
+        f"{long['library_ms']:.4f} ms bound {long['bound_ms']:.4f} ms "
+        f"({long['bound_by']})")
+    log("  decode outputs on the sink views bitwise equal to the paged decode "
+        "kernel's; a NaN key reaches its row")
+    dec["max_abs_err"] = worst
+    results["decode_attention"] = dec
+    torch.cuda.empty_cache()
+    return results
+
+
+# -- phase 15: the fused SwiGLU kernel -----------------------------------------
+# In bf16 the kernel and the plain version each round the hidden tile from
+# their own f32 sums, which differ in the last bits (another summation
+# order): a hidden value that close to a bf16 rounding boundary rounds the
+# other way, one bf16 step, and moves output k by that step times |Wd_fk|.
+# How many such values a row holds grows with the widths, so the bf16 gates
+# account for them exactly.  The kernel's own hidden values are read back by
+# running it on the same x, Wg and Wu with a Wd that selects D hidden
+# columns (one 1 per output column): each output is then one hidden value
+# plus exact zeros, and the hidden tile is computed as in the full call.
+# Gates: each of those values within one bf16 step of the float64 hidden;
+# the output within one output rounding step (phase 3's rule) of the plain
+# down product of the kernel's hidden values, and of ``fused_swiglu_plain``
+# plus ``|h_kernel - h_plain| @ |Wd|``.  Printed per shape: the most hidden
+# values per row that the plain version and the kernel round off the
+# float64 value, and the largest |kernel - plain| over one output step plus
+# one worst-case hidden flip (2**-7 max|h_row| max|Wd_col|).
+
+
+def kernel_hidden(fused_swiglu, torch, x, wg, wu):
+    """The kernel's own rounded hidden values (M, F), read back through a
+    down projection that selects D hidden columns per call."""
+    D, F = wg.shape
+    parts = []
+    for f0 in range(0, F, D):
+        n = min(D, F - f0)
+        sel = torch.zeros((F, D), dtype=x.dtype, device=x.device)
+        sel[f0:f0 + n, :n] = torch.eye(n, dtype=x.dtype, device=x.device)
+        parts.append(fused_swiglu(x, wg, wu, sel)[:, :n])
+    return torch.cat(parts, 1)
+
+
+def swiglu_case(torch, timer, gen, ffn, M, dtype, timed):
+    from repro_torch.kernels.fused_swiglu import (
+        fused_swiglu, fused_swiglu_plain)
+    from repro_torch.kernels.ref import fused_swiglu_ref
+    import torch.nn.functional as F
+
+    wg, wu, wd = (ffn[n].to(dtype) for n in ("w_gate", "w_up", "w_down"))
+    D, Fh = wg.shape
+    x = torch.randn((M, D), generator=gen, device="cuda").to(dtype)
+    got = fused_swiglu(x, wg, wu, wd)
+    want = fused_swiglu_plain(x, wg, wu, wd)
+    oracle = fused_swiglu_ref(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    require(got.shape == (M, D) and bool(torch.isfinite(got).all()),
+            "fused_swiglu: output not finite or of the wrong shape")
+    g_, w_ = got.float(), want.float()
+    err = (g_ - w_).abs()
+    if dtype == torch.float32:
+        require(bool((err <= 1e-4).all()),
+                f"fused_swiglu f32: max |kernel - plain| {err.max().item():.3e}"
+                " > 1e-4")
+        over_step = 0
+    else:
+        xf, wgf, wuf, wdf = (a.float() for a in (x, wg, wu, wd))
+        g, u = xf @ wgf, xf @ wuf
+        h_plain = (g * torch.sigmoid(g) * u).to(dtype).float()
+        x64 = x.double()
+        g64 = x64 @ wg.double()
+        h64 = g64 * torch.sigmoid(g64) * (x64 @ wu.double())
+        h_exact = h64.to(dtype).float()
+        del g64, h64
+        h_kern = kernel_hidden(fused_swiglu, torch, x, wg, wu).float()
+        h_step = TOL_BF16[0] + TOL_BF16[1] * h_exact.abs()
+        bad = (h_kern - h_exact).abs() > h_step
+        require(not bool(bad.any()),
+                f"fused_swiglu bf16: {int(bad.sum())} hidden values more than "
+                "one bf16 step off the float64 hidden")
+        flips = {"plain": int((h_plain != h_exact).sum(1).max()),
+                 "kernel": int((h_kern != h_exact).sum(1).max()),
+                 "kernel_vs_plain": int((h_kern != h_plain).sum(1).max())}
+        step = TOL_BF16[0] + TOL_BF16[1] * w_.abs()
+        own = (h_kern @ wdf).to(dtype).float()
+        bad = (g_ - own).abs() > TOL_BF16[0] + TOL_BF16[1] * own.abs()
+        require(not bool(bad.any()),
+                f"fused_swiglu bf16: {int(bad.sum())} outputs more than one "
+                "bf16 step off the plain down product of its hidden values")
+        moved = (h_kern - h_plain).abs() @ wdf.abs()
+        bad = err > step + moved
+        require(not bool(bad.any()),
+                f"fused_swiglu bf16: |kernel - plain| "
+                f"{err[bad].max().item() if bad.any() else 0:.3e} over one "
+                f"bf16 step plus the move of the hidden values that differ "
+                f"at {int(bad.sum())} outputs")
+        one_flip = (2.0 ** -7 * h_exact.abs().amax(1, keepdim=True)
+                    * wdf.abs().amax(0, keepdim=True))
+        flips["err_over_step_plus_one_flip"] = (
+            err / (step + one_flip)).max().item()
+        over_step = int((err > step).sum())
+        o_ = oracle.float()
+        require(bool(((g_ - o_).abs() <= 0.1 + 0.1 * o_.abs()).all()),
+                "fused_swiglu bf16: outside 5 x 2e-2 of fused_swiglu_ref")
+    r = {"max_abs_err": err.max().item(), "over_step": over_step,
+         "ref_err": (g_ - oracle.float()).abs().max().item()}
+    if dtype != torch.float32:
+        r["flips"] = flips
+    if not timed:
+        return r
+    ms = timer(lambda: fused_swiglu(x, wg, wu, wd))
+    plain_ms = timer(lambda: fused_swiglu_plain(x, wg, wu, wd))
+    lib_ms = timer(lambda: (F.silu(x @ wg) * (x @ wu)) @ wd)
+    esz = x.element_size()
+    n_bytes = (2 * M * D + 3 * D * Fh) * esz
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    b_ms, b_by = bound_ms(n_bytes, 6 * M * D * Fh, rate)
+    r.update({"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+              "bound_ms": b_ms, "bound_by": b_by})
+    return r
+
+
+def swiglu_phase(torch, ffn0):
+    """Phase 15: ``fused_swiglu`` on full-width qwen1.5-0.5b's layer-0 FFN
+    weights (``ffn0``) at M in {16, 256, 2048}, bf16 and f32, and at
+    qwen3-8b's FFN widths (seeded weights) at M = 256 in bf16; every case
+    timed."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    timer = Timer(torch)
+    results = {}
+    cases = [(ffn0, "qwen1.5-0.5b layer 0", M, dtype)
+             for dtype in (torch.bfloat16, torch.float32)
+             for M in (16, 256, 2048)]
+    ffn8b = L.init_ffn(gen, 4096, 12288, torch.bfloat16, "cuda")
+    cases.append((ffn8b, "qwen3-8b widths", 256, torch.bfloat16))
+    for ffn, name, M, dtype in cases:
+        r = swiglu_case(torch, timer, gen, ffn, M, dtype, timed=True)
+        D, Fh = ffn["w_gate"].shape
+        r["shape"] = f"{name} M={M} D={D} F={Fh} {str(dtype)[6:]}"
+        results[(name, M, dtype)] = r
+        log(f"  fused_swiglu {r['shape']}: max |kernel - plain| "
+            f"{r['max_abs_err']:.3e} (over one bf16 step at {r['over_step']} "
+            f"outputs), max |kernel - ref| {r['ref_err']:.3e}; kernel "
+            f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms library "
+            f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+        if "flips" in r:
+            f = r["flips"]
+            log(f"    hidden values per row rounded off the float64 value: "
+                f"plain <= {f['plain']}, kernel <= {f['kernel']}; kernel vs "
+                f"plain differ in <= {f['kernel_vs_plain']}; max |kernel - "
+                f"plain| / (one step + one worst-case flip) "
+                f"{f['err_over_step_plus_one_flip']:.4f}")
+    del ffn8b
+    torch.cuda.empty_cache()
+    head = dict(results[("qwen1.5-0.5b layer 0", 2048, torch.bfloat16)])
+    head["max_abs_err"] = max(r["max_abs_err"] for r in results.values()
+                              if "bfloat16" in r["shape"])
+    return {"fused_swiglu": head}
+
+
+# -- phase 16: the standalone kernels through their entry points --------------
+def standalone_phase(torch, ffn0):
+    """``decode_attention`` and ``fused_swiglu`` run on no serve path (as in
+    the reference); a user reaches them through ``ops.flash_decode_attention``
+    and ``ops.swiglu_ffn``.  One call of each, at the dense serve's decode
+    shape and full-width qwen1.5-0.5b's FFN at M = 256, must launch exactly
+    its kernel and nothing else; returns the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.fused_swiglu import fused_swiglu
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    k, v = dense_cache(torch, gen, B=16, S=512, Hkv=16, hd=64,
+                       dtype=torch.bfloat16)
+    q = torch.randn((16, 16, 64), generator=gen, device="cuda").to(k.dtype)
+    kv_lens = torch.randint(1, 513, (16,), generator=gen,
+                            device="cuda").to(torch.int32)
+    w = [ffn0[n] for n in ("w_gate", "w_up", "w_down")]
+    x = torch.randn((256, w[0].shape[0]), generator=gen,
+                    device="cuda").to(w[0].dtype)
+    torch.cuda.synchronize()
+    zero_launches()
+    got_d = ops.flash_decode_attention(q, k, v, kv_lens, block_k=256)
+    got_s = ops.swiglu_ffn(x, *w, block_m=256, block_f=256)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {n: int(n in ("decode_attention", "fused_swiglu"))
+            for n in launches}
+    require(launches == want, f"entry points launched {launches}")
+    require(same_bits(got_d, decode_attention(q, k, v, kv_lens))
+            and same_bits(got_s, fused_swiglu(x, *w)),
+            "an entry point's output differs from its kernel's")
+    log(f"  ops.flash_decode_attention and ops.swiglu_ffn launched "
+        f"{ {n: c for n, c in launches.items() if c} } and nothing else")
+    return launches
+
+
+# -- phases 17-18: the dense KV layout served ------------------------------------
+PAGED_ATTENTION = ("paged_decode_attention", "paged_prefill_attention",
+                   "paged_decode_attention_fused",
+                   "paged_prefill_attention_fused")
+
+
+def dense_serve_phase(torch, baseline, swap=False):
+    """``serve --full --dense-kv`` (static budget, recompute): every request
+    finishes, ``chunked_prefill_attention`` runs exactly once per layer per
+    round -- every bucket, C = 1 included -- and no paged attention kernel
+    runs.  With ``swap``: ``--preemption-mode swap --kv-blocks 48``, where
+    swap-outs happen and are all restored through plain slot-row copies, no
+    swap kernel launches, nothing stays staged and the pool's invariants
+    hold."""
+    from repro_torch.engine.engine import serve
+    from repro_torch.launch import serve as serve_cli
+
+    flags = ["--full", "--dense-kv"]
+    if swap:
+        flags += ["--preemption-mode", "swap", "--kv-blocks",
+                  str(SWAP_KV_BLOCKS)]
+    args = serve_cli.build_parser().parse_args(flags)
+    engine, sched, kv_pool, reqs = serve_cli.build(args)  # binds + warms up
+    cfg = engine.model_cfg
+    require(not engine.cfg.paged_kv and engine.block_tables is None
+            and tuple(engine.cache) == ("k", "v")
+            and engine.cache["k"].shape == (
+                cfg.n_layers, 16, 513, cfg.n_kv_heads, cfg.resolved_head_dim),
+            f"not a dense cache: {[tuple(t.shape) for t in engine.cache.values()]}")
+    torch.cuda.synchronize()
+    engine.bucket_rounds.clear()
+    zero_launches()
+    res = serve(reqs, sched, engine, kv_pool=kv_pool)
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    toks = check_outputs(res, reqs, cfg.vocab_size)
+    rounds = sum(engine.bucket_rounds.values())
+    require(launches["chunked_prefill_attention"] == cfg.n_layers * rounds,
+            f"chunked prefill launches {launches} != {cfg.n_layers} x "
+            f"{rounds} rounds")
+    require(engine.bucket_rounds.get(1, 0) > 0,
+            f"no pure-decode round: {engine.bucket_rounds}")
+    others = [n for n in launches if n != "chunked_prefill_attention"]
+    require(all(launches[n] == 0 for n in others),
+            f"another kernel ran on the dense path: {launches}")
+    st = sched.stats
+    if swap:
+        require(st.swap_preemptions > 0, "no swap preemption happened")
+        require(st.swap_restores == st.swap_preemptions,
+                f"{st.swap_restores} restores != {st.swap_preemptions} "
+                "swap-outs")
+        require(not kv_pool.swapped_requests(), "a request is still staged")
+        kv_pool.check_invariants()
+    log(f"  served {res.report.n_finished}/{res.report.n_total} requests, "
+        f"{len(toks)} output tokens in {res.wall_s:.3f} s over {res.rounds} "
+        f"rounds (by chunk bucket: {dict(sorted(engine.bucket_rounds.items()))})"
+        f"; {st.preemptions} preemptions, {st.swap_preemptions} swapped out "
+        f"({st.swap_restores} restored); output tok/s "
+        f"{len(toks) / res.wall_s:.1f}; mean TTFT "
+        f"{res.report.ttft['mean'] * 1e3:.2f} ms P99 E2E "
+        f"{res.report.e2e['p99'] * 1e3:.2f} ms")
+    log(f"  kernel launches on the dense path: "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    note_tokens(reqs, res.outputs, baseline)
+    return launches
+
+
+# -- phase 19: the NaN guard -----------------------------------------------------
+def nan_guard_phase(torch, layout):
+    """``serve --full --nan-guard`` on the ``layout`` engine under
+    ``serve(robustness=...)`` with a ``nan_logits`` fault at the second
+    decode invocation: exactly the poisoned request is shed, for
+    ``"numerics"``; every other request finishes with its full token count;
+    nothing stays poisoned, and every value of the engine's KV cache is
+    finite at the end (releasing the victim zeroed what the poison and its
+    round wrote, and no kernel left a NaN in a sink)."""
+    from repro_torch.engine.engine import serve
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.robustness import (
+        FaultInjector, FaultPlan, FaultSpec, RobustnessConfig)
+
+    flags = {"split": [], "fused": ["--kv-layout", "fused"],
+             "dense": ["--dense-kv"]}[layout]
+    args = serve_cli.build_parser().parse_args(["--full", "--nan-guard"]
+                                               + flags)
+    engine, sched, kv_pool, reqs = serve_cli.build(args)  # binds + warms up
+    require(engine.cfg.nan_guard, "--nan-guard did not reach the engine")
+    injector = FaultInjector(FaultPlan((FaultSpec("nan_logits", nth=2),)))
+    torch.cuda.synchronize()
+    zero_launches()
+    res = serve(reqs, sched, engine, kv_pool=kv_pool,
+                robustness=RobustnessConfig(injector=injector))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    fired = [f for f in injector.fired if f.site == "nan_logits"]
+    require(len(fired) == 1, f"nan_logits fired {len(fired)} times")
+    victim = fired[0].req_id
+    shed = {r.req_id: r.shed_reason for r in reqs if r.shed_reason}
+    require(shed == {victim: "numerics"},
+            f"shed {shed}, expected only the victim {victim} for numerics")
+    require(res.robustness.quarantined == 1 and res.robustness.crash_unwinds == 0,
+            f"quarantined {res.robustness.quarantined}, crash unwinds "
+            f"{res.robustness.crash_unwinds}")
+    short = [r.req_id for r in reqs if r.req_id != victim and (
+        r.finish_time is None
+        or len(res.outputs.get(r.req_id, [])) != r.max_new_tokens)]
+    require(not short, f"requests other than the victim unfinished: {short}")
+    require(not engine._poisoned, f"still poisoned: {engine._poisoned}")
+    for name, cache in engine.cache.items():
+        require(bool(torch.isfinite(cache).all()),
+                f"a non-finite value is left in cache[{name!r}]")
+    kv_pool.check_invariants()
+    attn = ("chunked_prefill_attention",) if layout == "dense" else (
+        attention_names(layout)[0])
+    require(min(launches[n] for n in attn) > 0,
+            f"an attention kernel of the {layout} path did not run: {launches}")
+    victim_req = next(r for r in reqs if r.req_id == victim)
+    log(f"  {layout}: request {victim} poisoned, quarantined after "
+        f"{len(res.outputs[victim])} of {victim_req.max_new_tokens} tokens "
+        f"(shed_reason numerics); the other {len(reqs) - 1} finished; "
+        f"nothing poisoned left, every cache value finite; served in "
+        f"{res.wall_s:.3f} s over {res.rounds} rounds")
+
+
+# -- --turns: the paged kernels of two trees in turns ---------------------------
+TURN_CODE = """
+import json, sys
+sys.path.insert(0, "src")
+import torch, chip_smoke as cs
+r = cs.kernel_phase(torch)
+r.update(cs.kernel_phase(torch, fused=True))
+print("TURN " + json.dumps({k: v["ms"] for k, v in r.items()}), flush=True)
+"""
+
+
+def turns(other: Path) -> int:
+    """Phases 3 and 10 (the paged split and fused kernels) of the checkout
+    at ``other`` and of this one, each in a process of its own, in turns --
+    other, this, this, other -- since the card's clocks drift between
+    timings; prints each turn's kernel times (ms)."""
+    for label, root in (("other", other), ("this", ROOT), ("this", ROOT),
+                        ("other", other)):
+        res = subprocess.run([sys.executable, "-c", TURN_CODE], cwd=root,
+                             capture_output=True, text=True, timeout=600)
+        line = [ln for ln in res.stdout.splitlines() if ln.startswith("TURN ")]
+        if res.returncode != 0 or not line:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return 1
+        log(f"TURN {label} {root}: {line[0][5:]}")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1055,6 +1701,8 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--turns"]:
+        return turns(Path(sys.argv[2]).resolve())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1104,6 +1752,7 @@ def main() -> int:
 
     log("== full-width model: kernels on the card vs plain on the CPU")
     reference_phase(torch, engine.model_cfg, engine.params)
+    ffn0 = engine.params["layers"][0]["ffn"]    # for phases 15-16
     del engine
     torch.cuda.empty_cache()
 
@@ -1122,6 +1771,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("== LPRS (--full --kv-layout fused --policy aging --lprs --apc)")
     lprs_phase(torch, fused_engine, fused_pool, static)
+    del fused_engine, fused_pool, static
+    torch.cuda.empty_cache()
+
+    log("== dense attention kernels vs plain versions and the paged kernels")
+    dense_kern = dense_kernel_phase(torch)
+    log("== NaN keys through the paged kernels")
+    paged_poison_phase(torch)
+    log("== fused SwiGLU kernel vs plain versions")
+    swiglu_kern = swiglu_phase(torch, ffn0)
+    log("== standalone kernels through ops.flash_decode_attention and "
+        "ops.swiglu_ffn")
+    standalone_launches = standalone_phase(torch, ffn0)
+    torch.cuda.empty_cache()
+    log("== serve, dense (--full --dense-kv)")
+    dense_launches = dense_serve_phase(torch, baseline)
+    torch.cuda.empty_cache()
+    log(f"== serve, dense swap (--full --dense-kv --preemption-mode swap "
+        f"--kv-blocks {SWAP_KV_BLOCKS})")
+    dense_serve_phase(torch, baseline, swap=True)
+    torch.cuda.empty_cache()
+    for layout in ("split", "fused", "dense"):
+        log(f"== NaN guard, {layout} (--full --nan-guard"
+            + {"split": "", "fused": " --kv-layout fused",
+               "dense": " --dense-kv"}[layout]
+            + ", a nan_logits fault at the 2nd decode)")
+        nan_guard_phase(torch, layout)
+        torch.cuda.empty_cache()
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/paged_decode_attention.py:249",
@@ -1134,17 +1810,27 @@ def main() -> int:
         "swap_scatter_pages": "src/repro/kernels/swap.py:113",
         "swap_gather_pages_q8": "src/repro/kernels/swap.py:179",
         "swap_scatter_pages_q8": "src/repro/kernels/swap.py:221",
+        "chunked_prefill_attention":
+            "src/repro/kernels/chunked_prefill_attention.py:144",
+        "decode_attention": "src/repro/kernels/decode_attention.py:115",
+        "fused_swiglu": "src/repro/kernels/fused_swiglu.py:85",
     }
-    # each kernel's launches come from the serve phase of its own path:
-    # split attention from the recompute main path, fused attention from
-    # the fused serve phase, the fp swap pair from the swap phase, the INT8
-    # pair from the INT8 phase
+    # each kernel's launches come from the run of its own path: split
+    # attention from the recompute main path, fused attention from the fused
+    # serve phase, the fp swap pair from the swap phase, the INT8 pair from
+    # the INT8 phase, the dense chunked prefill from the dense serve phase,
+    # and the two kernels no serve path runs from their entry points' run
     path_launches = {**swap_launches, **{n: q8_launches[n]
                                          for n in SWAP_KERNELS[2:]}, **launches,
                      **{n: fused_launches[n]
-                        for n in attention_names("fused")[0]}}
+                        for n in attention_names("fused")[0]},
+                     "chunked_prefill_attention":
+                         dense_launches["chunked_prefill_attention"],
+                     **{n: standalone_launches[n]
+                        for n in ("decode_attention", "fused_swiglu")}}
     kernels = []
-    for name, rep in {**kern, **swap_kern}.items():
+    for name, rep in {**kern, **swap_kern, **dense_kern,
+                      **swiglu_kern}.items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -3,7 +3,8 @@ running actual forward passes, on an NVIDIA GPU through the port's CUDA
 kernels (or on the CPU through their plain versions, for tests).
 
 The port of ``repro/engine/engine.py``.  Continuous batching with PAGED KV
-storage (vLLM layout):
+storage (vLLM layout) by default, or dense per-slot KV (``paged_kv=False``,
+the A/B layout):
   * ``n_slots`` fixed *batch rows*; a request binds a slot at its FIRST
     scheduled chunk (late binding) and keeps it until it finishes or is
     preempted.
@@ -27,18 +28,23 @@ storage (vLLM layout):
     come back through an async copy into a pinned buffer owned by the round
     and are drained one round late.  Greedy outputs are identical to the
     synchronous engine (``pipelined=False``).
+  * DENSE KV (``paged_kv=False``): ``(layers, n_slots, max_context + 1,
+    kv_heads, head_dim)`` per tensor, one row per slot and a sink row at the
+    end of each; every round attends through the dense chunked-prefill
+    kernel.  Prefix-cache hits copy parked block payloads into the slot; a
+    swap stages the whole slot row, with no swap kernel.
   * SWAP preemption (``preemption_mode="swap"``) and disaggregated
     handoffs move a request's pages through the swap kernels: a gather into
     one staging tensor and an async copy into pinned host memory at
     swap-out, landed one round late by ``finalize_swaps``; an upload and a
     scatter into fresh pages at swap-in.  With ``host_kv_dtype="int8"`` on
     the pool the staged pages are INT8 with per-page-per-head scales.
+  * NaN GUARD (``nan_guard=True``): each round also checks its logits for
+    non-finite values; the mask rides the token readback, and the serve loop
+    quarantines the requests it names.  ``poison_kv`` is the ``nan_logits``
+    chaos site's hook; ``release`` zeroes a victim's poisoned storage.
   * The scheduler under test is the real ``repro_torch.core`` code (a copy
     of ``repro.core``); latencies are wall-clock.
-
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-queue item): ``paged_kv=False``, ``nan_guard`` and the poison/scrub chaos
-hooks.
 """
 from __future__ import annotations
 
@@ -69,11 +75,6 @@ from repro_torch.models.transformer import torch_dtype
 from repro_torch.robustness import FailoverStats, ReplicaHealth
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1, item {item})")
-
-
 @dataclass
 class EngineConfig:
     n_slots: int = 16
@@ -82,7 +83,7 @@ class EngineConfig:
     # kept for config parity with the JAX engine: the port picks kernel or
     # plain version by the tensors' device (CUDA: kernels), not by this flag
     use_pallas: bool = False
-    paged_kv: bool = True             # False (dense slots) is not ported yet
+    paged_kv: bool = True             # False: dense per-slot KV (A/B layout)
     kv_block_size: int = 16           # page size when the engine owns its pool
     # accepted, no effect: the TPU meaning (pages DMA-gathered per tile,
     # VMEM buffers per grid) does not carry over to the CUDA kernels
@@ -98,7 +99,9 @@ class EngineConfig:
     # scratch, the A/B default); "swap" stages it host-side and restores it
     # on re-schedule -- the scheduler picks per victim via the cost model
     preemption_mode: str = "recompute"
-    nan_guard: bool = False              # True is not ported yet
+    # check each round's logits for NaN/Inf; the serve loop quarantines the
+    # requests whose sampled logits are non-finite
+    nan_guard: bool = False
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
     seed: int = 0
 
@@ -178,7 +181,8 @@ class InflightRound:
     finished) it while the host schedules the next one.  ``toks`` is the
     readback of the sampled ids; ``sampled`` names the (request, slot) pairs
     whose token this round actually produced (decodes + prefill-completing
-    chunks).  ``out_index`` records, per request, which position of
+    chunks).  Under ``nan_guard`` ``toks`` also carries the per-slot finite
+    mask, and ``drain`` fills ``nonfinite`` from it.  ``out_index`` records, per request, which position of
     ``output_tokens`` received this round's placeholder (filled by the serve
     loop after ``on_batch_done``); ``drain`` patches the real ids there."""
     toks: HostCopy
@@ -187,7 +191,7 @@ class InflightRound:
     out_index: Dict[int, int] = field(default_factory=dict)
     finished: List[Request] = field(default_factory=list)
     prefill_ids: set = field(default_factory=set)   # this round's prefill reqs
-    # nan_guard is not ported: stays empty, ReplicaServer reads it
+    # req_ids whose sampled logits were non-finite (nan_guard; drain fills it)
     nonfinite: set = field(default_factory=set)
     # the batch this round executed -- a crash unwind enumerates its members
     batch: Optional[ScheduledBatch] = None
@@ -200,11 +204,10 @@ class TorchEngine:
                  params=None, kv_pool: Optional[KVBlockPool] = None, *,
                  device="cuda"):
         self.cfg = cfg or EngineConfig()
-        if not self.cfg.paged_kv:
-            raise _not_ported("paged_kv=False (dense KV slots)", 9)
         assert self.cfg.kv_layout in ("split", "fused"), self.cfg.kv_layout
-        if self.cfg.nan_guard:
-            raise _not_ported("nan_guard=True", 8)
+        assert self.cfg.paged_kv or self.cfg.kv_layout == "split", (
+            "kv_layout='fused' requires paged_kv=True"
+        )
         assert self.cfg.buffering_depth >= 1, self.cfg.buffering_depth
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
@@ -227,8 +230,13 @@ class TorchEngine:
         # host ms to stage and enqueue each round (the eager step launches
         # every kernel of the round from Python)
         self.enqueue_ms: List[float] = []
-        # nan_guard is not ported: never populated, read by ReplicaServer
+        # sync-mode mirror of the last drained round's nonfinite set, read by
+        # ReplicaServer
         self.last_nonfinite: set = set()
+        # nan_logits victims whose poisoned storage release() has still to
+        # zero: req_id -> the poisoned block's index in its table (paged) or
+        # the poisoned row (dense)
+        self._poisoned: Dict[int, int] = {}
         # rounds dispatched per chunk bucket (C == 1: pure-decode rounds)
         self.bucket_rounds: Dict[int, int] = {}
         # swap-outs whose host copy has not been landed yet -- (staging
@@ -248,7 +256,7 @@ class TorchEngine:
         # the engine books blocks itself only while it owns a private pool;
         # an externally bound pool is booked by the scheduler
         self._owns_pool = False
-        if self.kv_pool is None:
+        if self.cfg.paged_kv and self.kv_pool is None:
             bs = self.cfg.kv_block_size
             per_slot = math.ceil(self.cfg.max_context / bs) + 1
             self.kv_pool = KVBlockPool(KVPoolConfig(
@@ -264,20 +272,26 @@ class TorchEngine:
         hd = model_cfg.resolved_head_dim
         dt = torch_dtype(model_cfg.param_dtype)
         dev = self.device
-        bs = self.kv_pool.cfg.block_size
-        # physical pages = pool blocks + 1 trailing sink page (padding lanes
-        # scatter there; block tables also pad with it)
-        self._n_phys = self.kv_pool.cfg.n_blocks + 1
-        self._sink = self.kv_pool.cfg.n_blocks
-        self.max_pages = math.ceil(S / bs) + 1
-        n_kv = model_cfg.n_kv_heads * (2 if cfg.kv_layout == "fused" else 1)
-        kv_shape = (model_cfg.n_layers, self._n_phys, bs, n_kv, hd)
-        # device-resident block tables; _bt_host mirrors exactly what the
-        # device holds, _bt_len tracks per-slot entries already uploaded
-        self._bt_host = np.full((B, self.max_pages), self._sink, np.int32)
-        self._bt_len = np.zeros((B,), np.int32)
-        self._bt_dirty: set = set()
-        self.block_tables = self._upload(self._bt_host)
+        if cfg.paged_kv:
+            bs = self.kv_pool.cfg.block_size
+            # physical pages = pool blocks + 1 trailing sink page (padding
+            # lanes scatter there; block tables also pad with it)
+            self._n_phys = self.kv_pool.cfg.n_blocks + 1
+            self._sink = self.kv_pool.cfg.n_blocks
+            self.max_pages = math.ceil(S / bs) + 1
+            n_kv = model_cfg.n_kv_heads * (2 if cfg.kv_layout == "fused" else 1)
+            kv_shape = (model_cfg.n_layers, self._n_phys, bs, n_kv, hd)
+            # device-resident block tables; _bt_host mirrors exactly what the
+            # device holds, _bt_len tracks per-slot entries already uploaded
+            self._bt_host = np.full((B, self.max_pages), self._sink, np.int32)
+            self._bt_len = np.zeros((B,), np.int32)
+            self._bt_dirty: set = set()
+            self.block_tables = self._upload(self._bt_host)
+        else:
+            # one row per slot and position, plus a sink row per slot for
+            # padding lanes (never attended: the step reads cache[:, :-1])
+            kv_shape = (model_cfg.n_layers, B, S + 1, model_cfg.n_kv_heads, hd)
+            self.block_tables = None
         # drop the old pool before allocating the new one (a rebind at full
         # width would otherwise hold two ~1.6 GB pools per tensor at once);
         # the keys are in swap payload order
@@ -322,20 +336,29 @@ class TorchEngine:
         """Forward + sampling + length update + device token feedback for one
         round, all enqueued on the device without a host sync.  The cache,
         ``lens`` and ``last_token`` are updated in place (the JAX engine
-        donated those buffers to its jitted step)."""
+        donated those buffers to its jitted step).  Returns ``(toks,)``, or
+        ``(toks, finite)`` under ``nan_guard``: per slot, whether every
+        logit was finite."""
         # decode lanes consume the device-resident last sampled token (the
         # host staged a 0 there -- it may not know the id yet)
         tokens[:, 0] = torch.where(use_last, self.last_token, tokens[:, 0])
-        logits = self.model.impl.chunked_step_paged(
-            self.params, tokens, self.cache, self.lens, chunk_lens,
-            self.block_tables, pages_per_tile=self.cfg.pages_per_tile,
-            kv_layout=self.cfg.kv_layout,
-            buffering_depth=self.cfg.buffering_depth,
-        )
+        impl = self.model.impl
+        if self.cfg.paged_kv:
+            logits = impl.chunked_step_paged(
+                self.params, tokens, self.cache, self.lens, chunk_lens,
+                self.block_tables, pages_per_tile=self.cfg.pages_per_tile,
+                kv_layout=self.cfg.kv_layout,
+                buffering_depth=self.cfg.buffering_depth,
+            )
+        else:
+            logits = impl.chunked_step(self.params, tokens, self.cache,
+                                       self.lens, chunk_lens)
         toks = sample_tokens(logits, self._gen, self.cfg.sampler)
         self.last_token.copy_(torch.where(sample_mask, toks, self.last_token))
         self.lens.add_(chunk_lens)
-        return toks
+        if self.cfg.nan_guard:
+            return toks, torch.isfinite(logits).all(dim=-1)
+        return (toks,)
 
     def bind_kv_pool(self, kv_pool: Optional[KVBlockPool]) -> None:
         """Adopt the serve loop's shared pool: the physical page array is
@@ -345,7 +368,7 @@ class TorchEngine:
         if kv_pool is None or kv_pool is self.kv_pool:
             return
         assert not self.slot_of, "cannot rebind the KV pool mid-flight"
-        if self.warmed:
+        if self.warmed and self.cfg.paged_kv:
             raise RuntimeError(
                 "bind_kv_pool after warmup(): the rebuild reallocates the page "
                 "pool the warm-up ran against -- bind the external pool "
@@ -358,18 +381,22 @@ class TorchEngine:
             )
         self.kv_pool = kv_pool
         self._owns_pool = False
-        self._build_state()
+        if self.cfg.paged_kv:
+            # page ids must equal the pool's block ids; the dense slots do
+            # not depend on the pool
+            self._build_state()
 
     def warmup(self, *, include_swap: Optional[bool] = None) -> None:
         """Run every chunk bucket once so serving rounds see steady-state
         latencies: the first round of each shape builds the CUDA kernels
         (nvcc, at first use), loads cuBLAS and settles the caching
-        allocator.  The dummy rounds write only into the sink page, which is
-        never read back, and ``lens`` is reset afterwards.  When this engine
-        can swap (``preemption_mode="swap"``) or the caller says it will
-        export/import KV (``include_swap=True``, the disagg handoff path,
-        which rides the swap kernels whatever the preemption mode), the swap
-        kernels run once too."""
+        allocator.  The dummy rounds write only into the sink page (paged),
+        or slot 0's first row (dense), which its next owner writes before
+        reading; ``lens`` is reset afterwards.  When a paged engine can swap
+        (``preemption_mode="swap"``) or the caller says it will export/import
+        KV (``include_swap=True``, the disagg handoff path, which rides the
+        swap kernels whatever the preemption mode), the swap kernels run once
+        too; a dense swap moves slot rows with plain copies."""
         B = self.cfg.n_slots
         off = torch.zeros((B,), dtype=torch.bool, device=self.device)
         chunk_lens = torch.zeros((B,), dtype=torch.int32, device=self.device)
@@ -380,7 +407,7 @@ class TorchEngine:
         self.lens.zero_()
         if include_swap is None:
             include_swap = self.cfg.preemption_mode == "swap"
-        if include_swap:
+        if include_swap and self.cfg.paged_kv:
             self._prewarm_swap_kernels()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -407,8 +434,10 @@ class TorchEngine:
     def acquire_slot(self, req: Request) -> bool:
         """Late slot binding: called by the scheduler when it first commits a
         chunk for ``req``.  Returns True when the request holds a slot after
-        the call.  The prefix-cache lookup happens HERE, not at admission;
-        the paged layout's matched pages are already resident (zero-copy)."""
+        the call.  The prefix-cache lookup happens HERE, not at admission:
+        the dense layout copies the matched block payloads into the fresh
+        slot; the paged layout's matched pages are already resident
+        (zero-copy)."""
         if req.req_id in self.slot_of:
             return True
         if not self.free_slots:
@@ -423,20 +452,27 @@ class TorchEngine:
         # a scalar fill enqueued on the stream, ordered after any round
         # still running there (no host sync)
         self.lens[slot] = req.prefill_done
-        self._bt_host[slot, :] = self._sink
-        self._bt_len[slot] = 0
-        self._bt_dirty.add(slot)
+        if self.cfg.paged_kv:
+            self._bt_host[slot, :] = self._sink
+            self._bt_len[slot] = 0
+            self._bt_dirty.add(slot)
+        elif req.prefill_done > 0 and self.kv_pool is not None:
+            self._restore_prefix_dense(req, slot)
         return True
 
     def release(self, req: Request) -> None:
         """Drop the request's slot (finish or preemption).  Idempotent.  With
         an engine-owned pool the request's blocks go back too."""
         slot = self.slot_of.pop(req.req_id, None)
-        if slot is not None:
-            self.free_slots.append(slot)
+        start = self._poisoned.pop(req.req_id, None)
+        if slot is not None and start is not None:
+            self._zero_poisoned(slot, start)
+        if slot is not None and self.cfg.paged_kv:
             self._bt_host[slot, :] = self._sink
             self._bt_len[slot] = 0
             self._bt_dirty.add(slot)
+        if slot is not None:
+            self.free_slots.append(slot)
         if self._owns_pool:
             self.kv_pool.release(req.req_id)
 
@@ -463,21 +499,30 @@ class TorchEngine:
     def swap_out(self, req: Request) -> None:
         """Scheduler swapper hook: gather the victim's pages into one
         contiguous staging tensor per cache tensor (INT8 codes and scales
-        under ``host_kv_dtype="int8"``), start their async copy into pinned
-        host memory, move the pool accounting to a SWAPPING staging record,
-        and release the slot.  The gather runs on the current stream, after
+        under ``host_kv_dtype="int8"``) -- the dense layout copies its whole
+        slot row instead -- start their async copy into pinned host memory,
+        move the pool accounting to a SWAPPING staging record, and release
+        the slot.  The gather runs on the current stream, after
         the round already enqueued there.  The payload becomes restorable
         only when ``finalize_swaps`` lands the copy -- the same
         one-round-late visibility the token readback has, so a
         mid-pipeline victim is never restored (or re-bound) in the round
         that is still copying its pages out."""
         pool = self.kv_pool
-        assert req.req_id in self.slot_of, f"swap_out of unbound req {req.req_id}"
-        ids, _n = self._swap_page_ids(req.req_id)
-        d_ids = self._upload(ids)
-        gather = (gather_swap_pages_q8 if self._host_quantized()
-                  else gather_swap_pages)
-        copy = HostCopy(tuple(gather(c, d_ids) for c in self.cache.values()))
+        slot = self.slot_of.get(req.req_id)
+        assert slot is not None, f"swap_out of unbound req {req.req_id}"
+        if self.cfg.paged_kv:
+            ids, _n = self._swap_page_ids(req.req_id)
+            d_ids = self._upload(ids)
+            gather = (gather_swap_pages_q8 if self._host_quantized()
+                      else gather_swap_pages)
+            staged = tuple(gather(c, d_ids) for c in self.cache.values())
+        else:
+            # dense layout: a copy of the whole slot row (positions past the
+            # stored length are never attended to after the restore), taken
+            # on the stream before any later round writes the slot
+            staged = tuple(c[:, slot].clone() for c in self.cache.values())
+        copy = HostCopy(staged)
         # keep the RECORD, not just the id: finalize must find it wherever
         # the disagg router's prefetch may have moved it by then
         rec = pool.swap_out(req.req_id)        # state: SWAPPING
@@ -539,11 +584,17 @@ class TorchEngine:
     def swap_in(self, req: Request, payload) -> None:
         """Scheduler restorer hook, called right after ``pool.swap_in``
         rebuilt the request's table from fresh blocks: scatter the staged
-        K/V into the new physical pages and restore the device-side
+        K/V into the new physical pages (paged) or copy the staged slot row
+        into the freshly bound slot (dense) and restore the device-side
         length."""
         slot = self.slot_of.get(req.req_id)
         assert slot is not None, f"swap_in of unbound req {req.req_id}"
         staged_pages = self._check_payload(req, payload)
+        if not self.cfg.paged_kv:
+            for cache, staged in zip(self.cache.values(), payload):
+                cache[:, slot] = self._upload(staged).view(cache.dtype)
+            self.lens[slot] = self.kv_pool.lens.get(req.req_id, 0)
+            return
         ids, n = self._swap_page_ids(req.req_id)
         assert n and ids.shape[0] == staged_pages, (
             f"req {req.req_id}: restore bucket {ids.shape[0]} != staged "
@@ -580,6 +631,7 @@ class TorchEngine:
         record's full stored length."""
         slot = self.slot_of.get(req.req_id)
         assert slot is not None, f"swap_in_tail of unbound req {req.req_id}"
+        assert self.cfg.paged_kv, "partial swap-in requires the paged layout"
         staged_pages = self._check_payload(req, payload)
         tail = self.kv_pool.tables.get(req.req_id, [])[tail_start_blocks:]
         assert tail, f"req {req.req_id}: empty tail restore"
@@ -593,21 +645,110 @@ class TorchEngine:
         self._restored(req, slot)
 
     def poison_kv(self, req: Request) -> None:
-        raise _not_ported("the nan_logits chaos hook (poison_kv)", 8)
+        """Chaos hook (the ``nan_logits`` fault site): corrupt the request's
+        OWN attended KV -- the row of its last cached token, in every layer
+        -- so its next forward pass yields non-finite logits, exercising the
+        numerics quarantine end to end.  Only PRIVATE storage is touched:
+        shared prefix pages (refcount > 1) are skipped, so co-resident
+        requests stay bit-identical to a fault-free run, and so are
+        content-addressed ones, which a later prefix hit would read
+        (``repro`` skips the shared ones only).  Reads the slot's
+        device length, a host sync (on the chaos path only, as the JAX
+        engine's ``device_get``)."""
+        slot = self.slot_of.get(req.req_id)
+        if slot is None:
+            return
+        written = int(self.lens[slot])
+        if written <= 0:
+            return
+        if self.cfg.paged_kv:
+            table = self.kv_pool.tables.get(req.req_id, [])
+            if not table:
+                return
+            bs = self.kv_pool.cfg.block_size
+            bi = min((written - 1) // bs, len(table) - 1)
+            # pages other requests read now (shared) or may match later
+            # (content-addressed) are left alone
+            while bi >= 0 and (self.kv_pool._ref.get(table[bi], 1) > 1
+                               or table[bi] in self.kv_pool._hash_of):
+                bi -= 1
+            if bi < 0:
+                return           # no private page: nothing safe to poison
+            for cache in self.cache.values():
+                cache[:, table[bi]] = float("nan")
+            self._poisoned[req.req_id] = bi
+        else:
+            for cache in self.cache.values():
+                cache[:, slot, written - 1] = float("nan")
+            self._poisoned[req.req_id] = written - 1
 
-    def scrub_poisoned(self) -> None:
-        raise _not_ported("the nan_logits chaos hook (scrub_poisoned)", 8)
+    def _zero_poisoned(self, slot: int, start: int) -> None:
+        """Zero a released nan_logits victim's storage from its poisoned
+        block (paged) or row (dense) on: the poison and what the victim's
+        rounds wrote after it from NaN activations.  It runs as the slot
+        frees -- the quarantine's shed, a crash unwind or a preemption --
+        so it is ordered on the stream before any later round or swap-in
+        can reuse the storage, and a NaN lane a later owner never
+        overwrites cannot reach its attention (a plain attention's masked
+        0 * NaN is NaN)."""
+        if self.cfg.paged_kv:
+            # poison_kv skipped content-addressed pages, which may follow
+            # the poisoned one; a prefix hit may still read them
+            row = self._bt_host[slot, start:self._bt_len[slot]]
+            pages = [int(p) for p in row
+                     if int(p) not in self.kv_pool._hash_of]
+            if not pages:
+                return
+            ids = torch.tensor(pages, dtype=torch.long, device=self.device)
+            for cache in self.cache.values():
+                cache[:, ids] = 0
+        else:
+            for cache in self.cache.values():
+                cache[:, slot, start:] = 0
 
     # -- prefix-cache payloads -------------------------------------------------
+    def _restore_prefix_dense(self, req: Request, slot: int) -> None:
+        """Dense layout only: copy a prefix-cache hit's stored K/V payloads
+        into the request's slot so the skipped prefill positions hold
+        numerically identical state (causal attention: prefix KV depends only
+        on prefix tokens).  At bind time ``prefill_done`` is exactly the
+        matched token count."""
+        kv_pool = self.kv_pool
+        bs = kv_pool.cfg.block_size
+        n_matched = req.prefill_done // bs
+        payloads = []
+        for bid in kv_pool.tables.get(req.req_id, [])[:n_matched]:
+            payload = kv_pool.payload(bid)
+            assert payload is not None and payload is not PAGED_RESIDENT, (
+                "dense engine prefix match requires parked payloads"
+            )
+            payloads.append(payload)
+        if payloads:
+            # one copy per cache tensor, not one per block
+            for i, cache in enumerate(self.cache.values()):
+                cache[:, slot, : n_matched * bs] = torch.cat(
+                    [p[i] for p in payloads], dim=1)
+
     def capture_sealed(self, req: Request) -> None:
         """Make newly sealed (full, content-addressed) prompt blocks
-        restorable by future prefix hits: the data already lives at the
-        block's physical page, so a residency marker suffices."""
+        restorable by future prefix hits.  Dense layout: park device copies
+        of the block's rows, enqueued on the stream after the round that
+        wrote them (no host sync, even mid-pipeline).  Paged layout: the
+        data already lives at the block's physical page, so a residency
+        marker suffices."""
         kv_pool = self.kv_pool
         if kv_pool is None:
             return
-        for _idx, bid, _s, _e in kv_pool.take_newly_sealed(req.req_id):
-            kv_pool.store_payload(bid, PAGED_RESIDENT)
+        if self.cfg.paged_kv:
+            for _idx, bid, _s, _e in kv_pool.take_newly_sealed(req.req_id):
+                kv_pool.store_payload(bid, PAGED_RESIDENT)
+            return
+        slot = self.slot_of.get(req.req_id)
+        if slot is None:
+            return
+        for _idx, bid, s, e in kv_pool.take_newly_sealed(req.req_id):
+            kv_pool.store_payload(bid, tuple(
+                c[:, slot, s:e].clone() for c in self.cache.values()))
 
     # -- one round ---------------------------------------------------------------
     def _bucket(self, c: int) -> int:
@@ -689,11 +830,13 @@ class TorchEngine:
     def dispatch(self, batch: ScheduledBatch) -> InflightRound:
         """Stage and launch one round WITHOUT waiting for it: the step
         (forward + sampling + length update) is enqueued while the caller
-        goes back to scheduling.  The sampled-token readback starts as an
-        async device->host copy; ``drain`` collects it one round later."""
+        goes back to scheduling.  The sampled-token readback (with the
+        finite mask under ``nan_guard``) starts as an async device->host
+        copy; ``drain`` collects it one round later."""
         tokens, chunk_lens, use_last, sample_mask, sampled = self._stage(batch)
         B, C = tokens.shape
-        self._sync_block_tables(batch)
+        if self.cfg.paged_kv:
+            self._sync_block_tables(batch)
         # one upload for the round's four small arrays, into a buffer of its
         # own (the numpy arrays are fresh each round, the device copy too)
         packed = self._upload(np.concatenate([
@@ -720,9 +863,16 @@ class TorchEngine:
         preemption already folded into a recompute prompt.  Returns
         dispatch->drain wall ms (device time plus whatever host work it
         overlapped)."""
-        toks = inflight.toks.numpy()
+        toks, *finite = inflight.toks.numpy()
         self._t_ready = time.perf_counter()
         wall_ms = (self._t_ready - inflight.t_dispatch) * 1e3
+        if finite:
+            inflight.nonfinite = {
+                req.req_id for req, slot in inflight.sampled
+                if not finite[0][slot]
+            }
+        # sync-mode mirror (execute() discards the InflightRound): the serve
+        # loop reads the quarantine set of the round it just executed here
         self.last_nonfinite = inflight.nonfinite
         # swap-out staging retires on the same one-round-late path: gathers
         # enqueued before this round's step are host-side by now (or the
@@ -936,8 +1086,7 @@ class ReplicaServer:
         fire here and — when ``fault_tolerant`` — any exception out of the
         round (injected or real) is converted into a crash unwind plus an
         ``"error"`` status the health machinery consumes, instead of tearing
-        down the whole serve loop.  ``NotImplementedError`` (a path the port
-        does not have yet) always reaches the caller."""
+        down the whole serve loop."""
         if self.injector is None and not self.fault_tolerant:
             return self._step_impl(now)
         try:
@@ -948,9 +1097,6 @@ class ReplicaServer:
                     time.sleep(max(spec.value, 0.0) / 1e3)
                 inj.maybe_raise("replica_step_crash", replica=self.name)
             return self._step_impl(now)
-        except NotImplementedError:
-            # a path this port does not have is refused, never survived
-            raise
         except Exception as e:  # noqa: BLE001 — the replica fault boundary
             if not self.fault_tolerant:
                 raise
@@ -1052,7 +1198,6 @@ class ReplicaServer:
                 self.quarantined.append(r)
                 if self.on_stopped is not None:
                     self.on_stopped(self, r)
-            engine.scrub_poisoned()
 
         if self.pipelined:
             # the placeholder each sampled request just received sits at the
@@ -1129,8 +1274,6 @@ class ReplicaServer:
             self.quarantined.append(req)
             if self.on_stopped is not None:
                 self.on_stopped(self, req)
-        if inflight.nonfinite:
-            self.engine.scrub_poisoned()
         for req, _slot in inflight.sampled:
             if req.req_id in inflight.nonfinite:
                 continue

@@ -173,6 +173,10 @@ __device__ __forceinline__ void attend_tile(
 
 // Normalise and store: out_row(r) gives row r's output (nullptr = padding
 // row, not stored).  A row that saw no valid key has l == 0 and stores 0.
+// A non-finite key or value of a valid key reaches l or acc as NaN or Inf
+// (fmaxf drops a NaN score from the running max, but its exp does not), and
+// the test is l != 0, not l > 0, so such a row stores NaN, as the plain
+// version does, and the engine's NaN guard sees it.
 template <typename T, int HD, int ROWS, typename ORow>
 __device__ __forceinline__ void finish_rows(const float* l, float* l_s,
                                             const float* acc, ORow out_row) {
@@ -188,7 +192,7 @@ __device__ __forceinline__ void finish_rows(const float* l, float* l_s,
   for (int i = 0; i < ROWS / kRowStep; ++i) {
     const int r = r0 + kRowStep * i;
     T* dst = out_row(r);
-    if (dst) dst[d] = from_float<T>(l_s[r] > 0.f ? acc[i] / l_s[r] : 0.f);
+    if (dst) dst[d] = from_float<T>(l_s[r] != 0.f ? acc[i] / l_s[r] : 0.f);
   }
 }
 

@@ -1,0 +1,66 @@
+"""Flash-decode attention over a dense per-sequence KV cache: a hand-written
+CUDA kernel for Hopper and its plain PyTorch version.
+
+Replaces the TPU kernel ``decode_attention``
+(``src/repro/kernels/decode_attention.py:88``, ``pallas_call`` at :115): one
+query token per sequence, q ``(B, Hq, hd)``, against the cache ``(B, S, Hkv,
+hd)``; keys at positions ``>= kv_len`` are masked.  No model path calls it
+(the dense engine's decode rounds run ``chunked_prefill_attention`` with one
+query, as the reference's do); ``ops.flash_decode_attention`` exposes it.
+
+Bound on an H100: bytes -- each sequence's live K and V read once, about
+one FLOP per byte.  The kernel (``csrc/decode_attention.cu``) is the paged
+decode kernel with dense K/V staging: one CTA per (sequence, kv head)
+holding the whole query group, so a key row is read once per group and
+nothing past ``kv_len`` is read.
+
+On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import native
+from repro_torch.kernels.ref import (
+    decode_attention_ref as decode_attention_plain,
+)
+
+MAX_GROUP = 8          # query heads per kv head one CTA holds (kDecodeGroup)
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+
+
+def decode_attention(q, k_cache, v_cache, kv_lens):
+    """q (B, Hq, hd); k/v_cache (B, S, Hkv, hd), rows contiguous, any batch
+    and key strides; kv_lens (B,) int32 -> (B, Hq, hd) in q's dtype."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, kv_lens)
+    dev = q.device
+    B, Hq, hd = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    native.check_attention_dims(q.dtype, Hq, Hkv, hd, dev)
+    if Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"query group {Hq // Hkv} > {MAX_GROUP}")
+    native.check_cuda_tensor("q", q, q.dtype, 3, dev)
+    batch_stride, row_stride = native.check_kv_cache(k_cache, v_cache,
+                                                     q.dtype, B, hd, dev)
+    native.check_cuda_tensor("kv_lens", kv_lens, torch.int32, 1, dev)
+    if kv_lens.shape[0] != B:
+        raise ValueError("kv_lens batch != q batch")
+    out = torch.empty_like(q)
+    fn = native.load("decode_attention", _ARGTYPES)
+    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            kv_lens.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, hd,
+            batch_stride, row_stride, native.DTYPE_CODES[q.dtype],
+            1.0 / math.sqrt(hd), native.stream_ptr(dev))
+    native.raise_on_error("decode_attention", rc)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("paged_decode_attention", "paged_prefill_attention",
            "paged_decode_attention_fused", "paged_prefill_attention_fused",
            "swap_gather_pages", "swap_scatter_pages",
-           "swap_gather_pages_q8", "swap_scatter_pages_q8")
+           "swap_gather_pages_q8", "swap_scatter_pages_q8",
+           "chunked_prefill_attention", "decode_attention", "fused_swiglu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -118,6 +119,38 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: Optional[torch.dtype],
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def check_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   dtype: torch.dtype, batch: int, hd: int,
+                   device: torch.device) -> Tuple[int, int]:
+    """Raise unless ``k_cache`` and ``v_cache`` are dense caches ``(batch, S,
+    Hkv, hd)`` of ``dtype`` on ``device`` that the dense attention kernels
+    can read in place: each key's ``(Hkv, hd)`` row contiguous, the same
+    strides in both, every stride and base 16-byte aligned.  The batch and
+    key strides may be anything else -- the engine passes ``cache[:, :-1]``,
+    a view that drops each slot's sink row, and no copy is made.  Returns
+    (batch stride, key stride) in elements."""
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if t.dim() != 4 or t.shape[0] != batch or t.shape[3] != hd:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"({batch}, S, Hkv, {hd})")
+        if t.stride(3) != 1 or t.stride(2) != hd:
+            raise ValueError(f"{name}: each key's (Hkv, hd) row must be "
+                             "contiguous")
+        esz = t.element_size()
+        if t.data_ptr() % 16 or any(s * esz % 16 for s in t.stride()[:3]):
+            raise ValueError(f"{name}: base and strides must be 16-byte "
+                             "aligned")
+    if k_cache.shape != v_cache.shape or k_cache.stride() != v_cache.stride():
+        raise ValueError(f"k_cache {tuple(k_cache.shape)} {k_cache.stride()} "
+                         f"and v_cache {tuple(v_cache.shape)} "
+                         f"{v_cache.stride()} differ")
+    return k_cache.stride(0), k_cache.stride(1)
 
 
 def check_attention_dims(dtype: torch.dtype, n_q_heads: int, n_kv_heads: int,

@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the paged attention kernels (exact f32 math, no
-tiling), split and fused KV layouts, and of the INT8 host-page math: the
-port of ``repro/kernels/ref.py:14-140`` and ``:143-167``.
+"""Plain PyTorch versions of the attention kernels (exact f32 math, no
+tiling), dense and paged, split and fused KV layouts, of the INT8 host-page
+math and of the fused SwiGLU: the port of ``repro/kernels/ref.py:14-176``.
 
 They are the CPU path of the engine and the references the CUDA kernels are
 held against on the card.  Like the jnp oracles, a row with no valid key
@@ -158,3 +158,24 @@ def dequantize_pages(q, scales, dtype):
     """Inverse of ``quantize_pages``: ``q * scales`` in f32, cast to the pool
     dtype."""
     return (q.float() * scales).to(dtype)
+
+
+def fused_swiglu_ref(x, w_gate, w_up, w_down):
+    """x: (M, D); w_gate/w_up: (D, F); w_down: (F, D) -> (M, D), f32 math
+    throughout (the jnp oracle: the hidden activations stay f32)."""
+    xf = x.float()
+    h = torch.nn.functional.silu(xf @ w_gate.float()) * (xf @ w_up.float())
+    return (h @ w_down.float()).to(x.dtype)
+
+
+def fused_swiglu_plain(x, w_gate, w_up, w_down):
+    """What the TPU kernel ``fused_swiglu`` computes
+    (``repro/kernels/fused_swiglu.py:47-62``): the gate and up products in
+    f32, ``silu(g) * u`` as ``g * sigmoid(g) * u`` in f32 and rounded to
+    ``x.dtype`` before the f32 down product -- where ``fused_swiglu_ref``
+    keeps the hidden activations f32."""
+    xf = x.float()
+    g = xf @ w_gate.float()
+    u = xf @ w_up.float()
+    h = (g * torch.sigmoid(g) * u).to(x.dtype)
+    return (h.float() @ w_down.float()).to(x.dtype)

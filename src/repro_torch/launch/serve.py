@@ -3,17 +3,16 @@
 
 ``repro/launch/serve.py`` on PyTorch, the paper's full stack: one replica,
 the chunked-prefill engine with paged KV (``--kv-layout split`` or
-``fused``), the pipelined loop, recompute or swap preemption
-(``--preemption-mode``), greedy sampling and the real scheduler
-(Aging/FCFS/SJF, LPRS latency-targeted chunking with its predictor trained
-on this engine's own profiled round latencies, APC, optional SLO tier and
-fault tolerance); or, with ``--disagg``, a fleet of prefill and decode
-replicas with cross-replica KV handoff.  The model is full width on one
-NVIDIA GPU (``--full``) or tiny; weights are the port's seeded random init.
-``--device cpu`` runs the plain PyTorch path.
-
-Not ported yet, and refused with ``NotImplementedError``: ``--dense-kv`` and
-``--nan-guard``.
+``fused``) or the dense per-slot A/B layout (``--dense-kv``), the pipelined
+loop, recompute or swap preemption (``--preemption-mode``), greedy sampling
+and the real scheduler (Aging/FCFS/SJF, LPRS latency-targeted chunking with
+its predictor trained on this engine's own profiled round latencies, APC,
+optional SLO tier and fault tolerance: ``--failover``, the NaN guard
+``--nan-guard`` and seeded chaos plans ``--chaos-seed``); or, with
+``--disagg``, a fleet of prefill and decode replicas with cross-replica KV
+handoff.  The model is full width on one NVIDIA GPU (``--full``) or tiny;
+weights are the port's seeded random init.  ``--device cpu`` runs the plain
+PyTorch path.
 """
 from __future__ import annotations
 
@@ -38,13 +37,6 @@ from repro_torch.engine.workload import (
     attach_prompt_tokens,
     sharegpt_like,
 )
-
-
-# the fault sites a colocated replica fires, and those the disaggregated
-# router adds; nan_logits belongs to the NaN guard, not ported yet
-COLOCATED_FAULT_SITES = ("replica_step_crash", "slow_round_ms")
-PORTED_FAULT_SITES = COLOCATED_FAULT_SITES + (
-    "handoff_drop", "handoff_stall", "swap_gather_fail", "host_oom")
 
 
 def profile_engine(model_cfg, engine: TorchEngine, *, kv_pool=None,
@@ -95,27 +87,13 @@ def robustness_from_args(args):
 
     injector = None
     if args.chaos_seed is not None:
-        # fuzz only the sites this path can fire
-        sites = PORTED_FAULT_SITES if args.disagg else COLOCATED_FAULT_SITES
-        plan = FaultPlan.fuzz(args.chaos_seed, n_faults=args.chaos_faults,
-                              sites=sites)
+        plan = FaultPlan.fuzz(args.chaos_seed, n_faults=args.chaos_faults)
         injector = FaultInjector(plan)
     return RobustnessConfig(
         max_retries=args.max_retries,
         handoff_ttl_s=args.handoff_ttl if args.handoff_ttl > 0 else None,
         injector=injector,
     )
-
-
-def _refuse_unported(args) -> None:
-    unported = [
-        (args.dense_kv, "--dense-kv (dense KV slots)", 9),
-        (args.nan_guard, "--nan-guard", 8),
-    ]
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md, queue 1, item {item})")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -135,7 +113,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--target-ms", type=float, default=0.0,
                     help="LPRS target round latency in ms (0 = 30.0)")
     ap.add_argument("--apc", action="store_true")
-    ap.add_argument("--dense-kv", action="store_true")
+    ap.add_argument("--dense-kv", action="store_true",
+                    help="dense per-slot KV cache instead of the paged pool "
+                         "(the A/B layout; greedy outputs are identical)")
     ap.add_argument("--sync-engine", action="store_true",
                     help="synchronous round loop instead of the overlapped "
                          "schedule/execute pipeline (A/B baseline; outputs "
@@ -183,13 +163,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--handoff-ttl", type=float, default=0.0,
                     help="reap staged handoff records older than this many "
                          "seconds (0 = no TTL; with --failover)")
-    ap.add_argument("--nan-guard", action="store_true")
+    ap.add_argument("--nan-guard", action="store_true",
+                    help="per-round finite-logits check: requests whose "
+                         "logits go NaN/Inf are quarantined (terminal shed "
+                         "reason 'numerics') instead of poisoning the batch")
     ap.add_argument("--chaos-seed", type=int, default=None,
-                    help="fuzz a deterministic fault plan from this seed "
-                         "over the sites this path fires (the replica crash "
-                         "and slow-round sites; with --disagg also the "
-                         "handoff, gather and host-memory sites) and inject "
-                         "it (implies --failover)")
+                    help="fuzz a deterministic fault plan from this seed and "
+                         "inject it (implies --failover)")
     ap.add_argument("--chaos-faults", type=int, default=3)
     ap.add_argument("--full", action="store_true",
                     help="the architecture at its published width")
@@ -201,15 +181,21 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _kv_name(args) -> str:
+    return "dense" if args.dense_kv else f"paged/{args.kv_layout}"
+
+
 def _model_cfg(args):
     return get_config(args.arch) if args.full else tiny_config(args.arch)
 
 
 def _engine_cfg(args) -> EngineConfig:
     return EngineConfig(n_slots=16, max_context=512,
+                        paged_kv=not args.dense_kv,
                         pipelined=not args.sync_engine,
                         kv_layout=args.kv_layout,
-                        preemption_mode=args.preemption_mode)
+                        preemption_mode=args.preemption_mode,
+                        nan_guard=args.nan_guard)
 
 
 def workload(args, model_cfg):
@@ -263,7 +249,6 @@ def build(args, *, host_kv_dtype: str = "auto"):
     the predictor trained on it.  ``host_kv_dtype="int8"`` stages swapped
     pages as INT8 (an API option, as in the JAX package: the CLI has no flag
     for it)."""
-    _refuse_unported(args)
     model_cfg = _model_cfg(args)
     engine = TorchEngine(model_cfg, _engine_cfg(args), device=args.device)
     kv_pool = pool_for_model(model_cfg, n_blocks=args.kv_blocks,
@@ -289,7 +274,6 @@ def build_fleet(args):
     the colocated engine."""
     from repro_torch.disagg import DisaggConfig, HandoffCostConfig, build_disagg
 
-    _refuse_unported(args)
     model_cfg = _model_cfg(args)
     router = build_disagg(
         model_cfg,
@@ -346,7 +330,7 @@ def run_disagg(args):
     row = res.report.row()
     print(f"\n=== {args.arch}{'' if args.full else '-tiny'} | DISAGG "
           f"{args.n_prefill}P+{args.n_decode}D policy={args.policy} "
-          f"kv=paged/{args.kv_layout} loop={'sync' if args.sync_engine else 'pipelined'} "
+          f"kv={_kv_name(args)} loop={'sync' if args.sync_engine else 'pipelined'} "
           f"cost={'model' if args.handoff_cost else 'always'} ===")
     print(f"finished {res.report.n_finished}/{res.report.n_total} "
           f"in {res.wall_s:.2f}s  ({res.rounds} rounds over "
@@ -463,7 +447,7 @@ def main(argv=None):
     print(f"\n=== {args.arch}{'' if args.full else '-tiny'} on "
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}"
           f" | policy={args.policy} lprs={args.lprs} apc={args.apc} "
-          f"kv=paged/{args.kv_layout} "
+          f"kv={_kv_name(args)} "
           f"loop={'sync' if args.sync_engine else 'pipelined'} "
           f"prefix_cache={args.prefix_cache} "
           f"preempt={args.preemption_mode} ===")

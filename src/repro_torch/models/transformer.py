@@ -1,6 +1,7 @@
-"""Decoder-only dense transformer LM: parameter init and the engine's paged
-chunked step (the port of ``repro/models/transformer.py:108-123`` and
-``:292-408``, split and fused KV layouts).
+"""Decoder-only dense transformer LM: parameter init and the engine's chunked
+step over a dense per-slot KV cache or a paged one, split and fused KV
+layouts (the port of ``repro/models/transformer.py:108-123`` and
+``:237-408``).
 
 Parameters are a dict mirroring the JAX pytree, except that ``"layers"`` is
 a list with one dict per layer instead of arrays with a stacked leading
@@ -66,6 +67,72 @@ class TransformerLM:
         return x @ params["embed"].t()
 
     # -- the engine round ----------------------------------------------------
+    def _round(self, params, tokens, positions, write_mask, chunk_lens,
+               attend):
+        """The layers of one engine round around a layout's KV write and
+        attention: ``attend(l, q, k_new, v_new)`` stores layer ``l``'s new
+        K/V and returns its attention output.  Masked lanes (``write_mask``
+        False) hand over zeros, never lane values: idle rows carry NaN under
+        the plain attention (a softmax over no key), and a NaN parked in
+        storage -- a shared sink page, or a slot's sink row -- would reach
+        other rows' masked-position 0*V products or the NaN guard's scan.
+        Zeroing also makes duplicate sink indices harmless: every write to
+        that row carries the same value.  Returns the logits at each slot's
+        last chunk position."""
+        cfg = self.cfg
+        keep = write_mask[:, :, None, None]
+        x = params["embed"][tokens.long()]
+        for l, lp in enumerate(params["layers"]):
+            h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+            q, k_new, v_new = L.qkv_project(lp["attn"], h, cfg, positions)
+            k_new = torch.where(keep, k_new, 0.0)
+            v_new = torch.where(keep, v_new, 0.0)
+            y = x + L.attn_output(lp["attn"], attend(l, q, k_new, v_new), cfg)
+            x = _block_ffn(lp, y, cfg)
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        last = (chunk_lens - 1).clamp(min=0).long()
+        x_last = x[torch.arange(x.shape[0], device=x.device), last]  # (B, D)
+        return self._unembed(params, x_last)
+
+    def chunked_step(self, params, tokens, cache, lens, chunk_lens):
+        """One chunked-prefill round against the dense per-slot KV cache
+        (Sarathi semantics, the engine's ``paged_kv=False`` A/B layout).
+
+        tokens (B, C) right-padded; cache {"k", "v"} each ``(L, B, S+1, Hkv,
+        hd)``, the last row of every slot a write sink for padding lanes;
+        lens (B,) int32 tokens already cached; chunk_lens (B,) int32 tokens
+        this round (decode 1, prefill its chunk, idle 0).  The cache is
+        updated IN PLACE (JAX returned a new one and donated the old
+        buffer); returns the logits at each slot's last chunk position.
+
+        Every bucket, C == 1 included, attends through
+        ``prefill_chunk_attention`` over ``cache[l][:, :-1]`` -- the
+        reference's exact computation -- which reads that view in place.
+        """
+        cfg = self.cfg
+        assert not cfg.sliding_window, "engine demo path supports linear caches"
+        B, C = tokens.shape
+        S_pad = cache["k"].shape[2]          # S + 1 (padding sink row)
+        dev = tokens.device
+        positions = lens[:, None] + torch.arange(C, dtype=torch.int32,
+                                                 device=dev)[None, :]
+        write_mask = (torch.arange(C, device=dev)[None, :]
+                      < chunk_lens[:, None])                      # (B, C)
+        # padding positions scatter into the sink row S_pad - 1
+        write_pos = torch.where(write_mask, positions, S_pad - 1).long()
+        bidx = torch.arange(B, device=dev)[:, None].expand(B, C)
+        kv_lens = lens + chunk_lens
+
+        def attend(l, q, k_new, v_new):
+            ck, cv = cache["k"][l], cache["v"][l]
+            ck.index_put_((bidx, write_pos), k_new)
+            cv.index_put_((bidx, write_pos), v_new)
+            return kops.prefill_chunk_attention(q, ck[:, :-1], cv[:, :-1],
+                                                kv_lens, lens)
+
+        return self._round(params, tokens, positions, write_mask, chunk_lens,
+                           attend)
+
     def chunked_step_paged(self, params, tokens, kv_pages, lens, chunk_lens,
                            block_tables, *, pages_per_tile: int = 1,
                            kv_layout: str = "split",
@@ -109,37 +176,20 @@ class TransformerLM:
         write_pos = torch.where(write_mask, flat_pos,
                                 (n_phys - 1) * ps).reshape(-1).long()
         kv_lens = lens + chunk_lens
-        keep = write_mask[:, :, None, None]
 
-        x = params["embed"][tokens.long()]
-        for l, lp in enumerate(params["layers"]):
-            h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            q, k_new, v_new = L.qkv_project(lp["attn"], h, cfg, positions)
-            # masked lanes land in the SHARED sink page: write zeros, never
-            # lane values -- idle rows carry NaN under the plain attention
-            # (all-masked softmax) and a NaN parked in shared storage would
-            # poison other rows' masked-position 0*V products.  Zeroing also
-            # makes the duplicate sink indices of index_put_ harmless: every
-            # write to that row carries the same value.  Both halves are
-            # zeroed before the fused layout interleaves them.
-            k_new = torch.where(keep, k_new, 0.0)
-            v_new = torch.where(keep, v_new, 0.0)
+        def attend(l, q, k_new, v_new):
             if fused:
-                attn = self._attend_fused(
+                return self._attend_fused(
                     kv_pages["kv"][l], q, k_new, v_new, write_pos,
                     block_tables, kv_lens, lens, pages_per_tile,
                     buffering_depth)
-            else:
-                attn = self._attend_split(
-                    kv_pages["k"][l], kv_pages["v"][l], q, k_new, v_new,
-                    write_pos, block_tables, kv_lens, lens, pages_per_tile,
-                    buffering_depth)
-            y = x + L.attn_output(lp["attn"], attn, cfg)
-            x = _block_ffn(lp, y, cfg)
-        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        last = (chunk_lens - 1).clamp(min=0).long()
-        x_last = x[torch.arange(B, device=dev), last]            # (B, D)
-        return self._unembed(params, x_last)
+            return self._attend_split(
+                kv_pages["k"][l], kv_pages["v"][l], q, k_new, v_new,
+                write_pos, block_tables, kv_lens, lens, pages_per_tile,
+                buffering_depth)
+
+        return self._round(params, tokens, positions, write_mask, chunk_lens,
+                           attend)
 
     @staticmethod
     def _attend_split(ck, cv, q, k_new, v_new, write_pos, block_tables,

@@ -6,8 +6,8 @@ KV exported at prefill completion through the swap gather, the host-side
 handoff store and the swap scatter into the decode replica, with KV-pressure
 swap preemptions racing the handoffs -- must produce exactly the greedy
 tokens (f32) of the port's single unconstrained engine and of the JAX
-package's fleet on the same weights, hand every request off exactly once and
-prefill 0 tokens on the decode side.  Prefetch on and off, and the
+package's fleet on the same weights, paged and dense alike, hand every
+request off exactly once and prefill 0 tokens on the decode side.  Prefetch on and off, and the
 synchronous and pipelined loops, give the same tokens.
 
 The JAX package's ``test_killed_mid_handoff_leaks_nothing`` cases fail in the
@@ -16,6 +16,7 @@ reference itself and are not mirrored here.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import tiny_config as jax_tiny_config
 from repro.core.scheduler import SchedulerConfig as JaxSchedulerConfig
@@ -36,6 +37,16 @@ from repro_torch.weights import from_jax_params
 SEED = 3          # the JAX fleet's replicas init from PRNGKey(engine seed)
 ENGINE = dict(n_slots=6, max_context=128, seed=SEED)
 SCHED = dict(policy="fcfs", token_budget=96, max_seqs=6)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes run as fast on one intra-op thread, and several test
+    workers sharing the CPU do not oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -61,11 +72,11 @@ def _two_wave(make, seed=5, n=12, new_tokens=24):
     return reqs
 
 
-def _port_fleet(tcfg, tparams, *, pipelined=True, prefetch=True):
+def _port_fleet(tcfg, tparams, *, pipelined=True, prefetch=True, paged=True):
     router = build_disagg(
         tcfg, cfg=DisaggConfig(prefetch=prefetch),
         engine_cfg=EngineConfig(pipelined=pipelined, preemption_mode="swap",
-                                **ENGINE),
+                                paged_kv=paged, **ENGINE),
         sched_cfg=SchedulerConfig(**SCHED), n_blocks=9, block_size=16,
         params=tparams, device="cpu")
     reqs = _two_wave(shared_prefix)
@@ -82,14 +93,18 @@ def _port_fleet(tcfg, tparams, *, pipelined=True, prefetch=True):
     return [res.outputs[r.req_id] for r in reqs], router
 
 
-def test_disagg_matches_single_engine_and_jax_fleet(weights):
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_disagg_matches_single_engine_and_jax_fleet(weights, paged):
+    """tests/test_disagg.py:94 on both layouts: the dense fleet hands whole
+    slot rows over instead of pages."""
     jcfg, tcfg, tparams = weights
-    got, router = _port_fleet(tcfg, tparams, pipelined=False)
+    got, router = _port_fleet(tcfg, tparams, pipelined=False, paged=paged)
     # pressure bit on the small pools: preemptions raced the handoffs
     assert sum(rs.sched.stats.preemptions for rs in router.replicas) > 0
+    assert all(rs.engine.cfg.paged_kv == paged for rs in router.replicas)
 
-    eng = TorchEngine(tcfg, EngineConfig(**ENGINE), params=tparams,
-                      device="cpu")
+    eng = TorchEngine(tcfg, EngineConfig(paged_kv=paged, **ENGINE),
+                      params=tparams, device="cpu")
     pool = KVBlockPool(KVPoolConfig(n_blocks=400, block_size=16,
                                     bytes_per_token=4, enable_prefix_cache=True))
     reqs = _two_wave(shared_prefix)
@@ -98,7 +113,7 @@ def test_disagg_matches_single_engine_and_jax_fleet(weights):
     single = [res.outputs[r.req_id] for r in reqs]
 
     jrouter = jax_build_disagg(
-        jcfg, engine_cfg=JaxEngineConfig(pipelined=False,
+        jcfg, engine_cfg=JaxEngineConfig(pipelined=False, paged_kv=paged,
                                          preemption_mode="swap", **ENGINE),
         sched_cfg=JaxSchedulerConfig(**SCHED), cfg=JaxDisaggConfig(),
         n_blocks=9, block_size=16)

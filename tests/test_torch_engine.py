@@ -2,8 +2,9 @@
 ``serve()`` of the port and of the JAX package on the same workload and the
 same converted weights give identical greedy outputs per request; the
 pipelined loop gives the synchronous loop's outputs; the port imports
-neither ``jax`` nor ``repro``; and an engine asked for the card without one
-raises instead of falling back.
+neither ``jax`` nor ``repro``; an engine asked for the card without one
+raises instead of falling back; and the serve CLI's chaos plans are the JAX
+CLI's.
 """
 import subprocess
 import sys
@@ -23,6 +24,7 @@ from repro.engine.engine import serve as jax_serve
 from repro.engine.workload import WorkloadSpec as JaxWorkloadSpec
 from repro.engine.workload import attach_prompt_tokens as jax_attach
 from repro.engine.workload import sharegpt_like as jax_sharegpt_like
+from repro.launch import serve as jax_serve_cli
 from repro.models.model import build_model as jax_build_model
 from repro_torch.configs import tiny_config
 from repro_torch.core.scheduler import ChunkedPrefillScheduler, SchedulerConfig
@@ -32,15 +34,22 @@ from repro_torch.engine.workload import (
     WorkloadSpec, attach_prompt_tokens, sharegpt_like,
 )
 from repro_torch.launch import serve as serve_cli
-from repro_torch.robustness import (
-    FaultInjector, FaultPlan, FaultSpec, RobustnessConfig,
-)
 from repro_torch.weights import from_jax_params
 
 WORKLOAD = dict(n_requests=6, inter_arrival_s=0.01, max_context=100,
                 max_new_tokens=8, seed=7)
 ENGINE = dict(n_slots=8, max_context=256)
 SCHED = dict(policy="aging", token_budget=48, max_seqs=8)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes run as fast on one intra-op thread, and several test
+    workers sharing the CPU do not oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -117,44 +126,20 @@ def test_engine_without_card_raises(monkeypatch):
         TorchEngine(tiny_config("qwen1.5-0.5b"))
 
 
-def test_unported_fault_site_escapes_the_fault_boundary(weights):
-    """A nan_logits fault needs the NaN guard, which is not ported: the
-    refusal must reach the caller, not be survived as a replica crash."""
-    _, _, tcfg, tparams = weights
-    eng = TorchEngine(tcfg, EngineConfig(**ENGINE), params=tparams, device="cpu")
-    reqs = sharegpt_like(WorkloadSpec(**WORKLOAD))
-    attach_prompt_tokens(reqs, tcfg.vocab_size)
-    rb = RobustnessConfig(injector=FaultInjector(FaultPlan(
-        (FaultSpec("nan_logits", nth=1),))))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve(reqs, ChunkedPrefillScheduler(SchedulerConfig(**SCHED)), eng,
-              robustness=rb)
-
-
 @pytest.mark.parametrize(
     "seed,disagg", [(s, False) for s in range(8)] + [(s, True) for s in range(8)],
     ids=[str(s) for s in range(8)] + [f"disagg-{s}" for s in range(8)])
-def test_serve_cli_chaos_plan_uses_only_ported_sites(seed, disagg):
-    """The fuzz draws only the sites the chosen path can fire: a colocated
-    replica the crash and slow-round sites, the disaggregated fleet those
-    and its handoff, gather and host-memory sites; never nan_logits (the NaN
-    guard is not ported)."""
+def test_serve_cli_chaos_plan_matches_jax_cli(seed, disagg):
+    """``--chaos-seed N`` fuzzes the same FaultPlan over every site as the
+    JAX package's serve CLI, colocated and ``--disagg`` alike (nan_logits
+    included: the NaN guard is ported)."""
     args = serve_cli.build_parser().parse_args(
         ["--chaos-seed", str(seed), "--chaos-faults", "6"]
         + (["--disagg"] if disagg else []))
     plan = serve_cli.robustness_from_args(args).injector.plan
+    want = jax_serve_cli.robustness_from_args(args).injector.plan
     assert len(plan.specs) == 6
-    sites = (serve_cli.PORTED_FAULT_SITES if disagg
-             else serve_cli.COLOCATED_FAULT_SITES)
-    assert {s.site for s in plan.specs} <= set(sites)
-    assert "nan_logits" not in sites
-
-
-@pytest.mark.parametrize("flags", [["--dense-kv"], ["--nan-guard"]])
-def test_serve_cli_refuses_unported_paths(flags):
-    args = serve_cli.build_parser().parse_args(["--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_cli.build(args)
+    assert [vars(s) for s in plan.specs] == [vars(s) for s in want.specs]
 
 
 def test_serve_cli_handoff_ttl_reaches_the_handoff_store():

@@ -31,6 +31,16 @@ DTYPES = {"float32": (jnp.float32, torch.float32, TOL_F32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, TOL_BF16)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes run as fast on one intra-op thread, and several test
+    workers sharing the CPU do not oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _both(a, jdt, tdt):
     """One numpy array as a jnp array and a torch CPU tensor of the same
     values (bf16 rounds identically in both)."""

@@ -30,6 +30,16 @@ PAGE_SIZE = 8
 MAX_PAGES = 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes run as fast on one intra-op thread, and several test
+    workers sharing the CPU do not oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _params(cfg, rng):
     """JAX init params as numpy, with random biases and norm weights."""
     params = jax.tree_util.tree_map(

@@ -53,6 +53,16 @@ GATHER_IDS = np.array([7, 2, 5, 8], np.int32)     # 3 real pages, sink-padded
 SCATTER_IDS = np.array([1, 6, 3, 8], np.int32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes run as fast on one intra-op thread, and several test
+    workers sharing the CPU do not oversubscribe it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _both(a, dtype):
     """One numpy array as a jnp array and a torch CPU tensor of the same
     values (bf16 rounds identically in both)."""
