@@ -7,14 +7,19 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``).
 2. build: compile every CUDA kernel from ``csrc/`` (eleven libraries, one
-   ``nvcc`` per source, in parallel) and print ptxas's report of each.
+   ``nvcc`` per source, in parallel) and print ptxas's report of each:
+   every kernel's (mangled) name, registers, spills and static shared
+   memory, the tensor-core kernels (``*_wgmma_kernel``,
+   ``swiglu_wg::gemm_kernel``) among them.
 3. kernels: each attention kernel against its plain PyTorch version on the card, at
    the main path's shapes (full-width qwen1.5-0.5b: B=16, Hq=Hkv=16, hd=64,
    page 16, ragged kv_lens up to 512 through permuted block tables, every
    chunk bucket) and one GQA shape (32/8 heads, as llama3.2-1b) at head
    dims 64 and 128; on rows with a valid key, |d| <= 1e-5 + 2**-7 |plain|
    (one bf16 rounding step, and never over 2e-2) in bf16 and <= 1e-5 in f32.
-   Times the kernel, the plain version and ``scaled_dot_product_attention``
+   In bf16 the prefill kernels run both products on the tensor cores
+   (wgmma, P split into two bf16 halves), in f32 on CUDA cores; the decode
+   kernels run on CUDA cores in both.  Times the kernel, the plain version and ``scaled_dot_product_attention``
    over the gathered dense K/V (``library_ms``, a yardstick the port never
    calls) with CUDA events, L2 flushed before each launch; computes the
    least time the card could take (``bound_ms``).
@@ -80,13 +85,16 @@ Phases, each of which raises (exit code != 0) on failure:
    B=16, S=512, 16/16, hd 64, GQA, and B=4, S=32,768, 32/8, hd 128
    (qwen3-8b's attention widths).  Phase 3's tolerances against the plain
    versions; on the sink views each output BITWISE equal to the paged
-   kernel's on the same keys laid into pages; a NaN key reaches its row's
-   output and no other.  Timed like phase 3 (``library_ms``: SDPA over the
+   kernel's on the same keys laid into pages (the bf16 kernels share one
+   tensor-core body and one shared-memory layout); a NaN key reaches its
+   row's output and no other.  Timed like phase 3 (``library_ms``: SDPA over the
    same cache with the same mask).  Then the same NaN check through the
    four paged kernels.
 15. fused SwiGLU: ``fused_swiglu`` on full-width qwen1.5-0.5b's layer-0
    FFN weights (D=1024, F=2816) at M in {16, 256, 2048}, bf16 and f32, and
-   at qwen3-8b's widths (D=4096, F=12,288, seeded) at M=256 in bf16: f32
+   at qwen3-8b's widths (D=4096, F=12,288, seeded) at M=256 in bf16 (two
+   wgmma GEMMs, the bf16 hidden activations between them; f32 on CUDA
+   cores): f32
    within 1e-4 of ``fused_swiglu_plain``; bf16: the kernel's hidden values
    (read back through a selecting down projection) each within one bf16
    step of the float64 hidden, its output within one output rounding step
@@ -116,9 +124,13 @@ numbers; the last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --turns OTHER_CHECKOUT
 
-times phases 3 and 10 (the four paged attention kernels) of another
-checkout (say the parent commit, unpacked with ``git archive``) and of this
-one in turns, other / this / this / other, each in a process of its own.
+times the kernels of phases 3 and 10 (paged decode, and paged prefill at
+every bucket, split and fused), 14 (chunked prefill at every bucket) and
+15 (bf16 SwiGLU at every shape) of another checkout (say the parent
+commit, unpacked with ``git archive``) and of this one in turns, other /
+this / this / other, each in a process of its own, through the other
+checkout's own ``chip_smoke.py`` functions; then prints, per kernel and
+shape, both sides' times and this / other.
 """
 from __future__ import annotations
 
@@ -1448,6 +1460,17 @@ def swiglu_case(torch, timer, gen, ffn, M, dtype, timed):
     if not timed:
         return r
     ms = timer(lambda: fused_swiglu(x, wg, wu, wd))
+    if dtype == torch.bfloat16:
+        # device time of each of the kernel's two GEMMs (torch.profiler)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fused_swiglu(x, wg, wu, wd)
+            torch.cuda.synchronize()
+        r["gemm_us"] = {e.key.split("(")[0].replace("void ", ""):
+                        e.device_time_total / e.count
+                        for e in prof.key_averages()
+                        if e.device_type.name == "CUDA" and "gemm" in e.key}
     plain_ms = timer(lambda: fused_swiglu_plain(x, wg, wu, wd))
     lib_ms = timer(lambda: (F.silu(x @ wg) * (x @ wu)) @ wd)
     esz = x.element_size()
@@ -1485,6 +1508,9 @@ def swiglu_phase(torch, ffn0):
             f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms library "
             f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
+        if "gemm_us" in r:
+            log("    device time per call: " + ", ".join(
+                f"{k} {v:.1f} us" for k, v in r["gemm_us"].items()))
         if "flips" in r:
             f = r["flips"]
             log(f"    hidden values per row rounded off the float64 value: "
@@ -1662,31 +1688,65 @@ def nan_guard_phase(torch, layout):
         f"{res.wall_s:.3f} s over {res.rounds} rounds")
 
 
-# -- --turns: the paged kernels of two trees in turns ---------------------------
+# -- --turns: the attention and SwiGLU kernels of two trees in turns ----------
 TURN_CODE = """
 import json, sys
 sys.path.insert(0, "src")
 import torch, chip_smoke as cs
-r = cs.kernel_phase(torch)
-r.update(cs.kernel_phase(torch, fused=True))
-print("TURN " + json.dumps({k: v["ms"] for k, v in r.items()}), flush=True)
+from repro_torch.models import layers as L
+torch.backends.cuda.matmul.allow_tf32 = False
+bf16 = torch.bfloat16
+timer = cs.Timer(torch)
+gen = torch.Generator(device="cuda").manual_seed(0)
+paged = dict(B=16, Hq=16, Hkv=16, hd=64, ps=16, max_pages=33, n_pages=2049)
+dense = dict(B=16, Hq=16, Hkv=16, hd=64, S=512)
+ms = {}
+for fused in (False, True):
+    lay = "fused" if fused else "split"
+    ms["paged_decode_attention " + lay] = cs.decode_case(
+        torch, timer, gen, dtype=bf16, timed=True, fused=fused, **paged)["ms"]
+    for Sq in (16, 32, 64, 128, 256):
+        ms[f"paged_prefill_attention {lay} Sq={Sq}"] = cs.prefill_case(
+            torch, timer, gen, Sq=Sq, dtype=bf16, timed=True, fused=fused,
+            **paged)["ms"]
+for Sq in (1, 16, 32, 64, 128, 256):
+    ms[f"chunked_prefill_attention Sq={Sq}"] = cs.dense_prefill_case(
+        torch, timer, gen, Sq=Sq, dtype=bf16, timed=True, **dense)["ms"]
+ffn = L.init_ffn(gen, 1024, 2816, bf16, "cuda")
+for M in (16, 256, 2048):
+    ms[f"fused_swiglu M={M}"] = cs.swiglu_case(
+        torch, timer, gen, ffn, M, bf16, timed=True)["ms"]
+ffn = L.init_ffn(gen, 4096, 12288, bf16, "cuda")
+ms["fused_swiglu qwen3-8b M=256"] = cs.swiglu_case(
+    torch, timer, gen, ffn, 256, bf16, timed=True)["ms"]
+print("TURN " + json.dumps(ms), flush=True)
 """
 
 
 def turns(other: Path) -> int:
-    """Phases 3 and 10 (the paged split and fused kernels) of the checkout
-    at ``other`` and of this one, each in a process of its own, in turns --
-    other, this, this, other -- since the card's clocks drift between
-    timings; prints each turn's kernel times (ms)."""
+    """Phase 3's and 10's paged attention kernels (decode, and prefill at
+    every bucket), phase 14's chunked prefill buckets and phase 15's bf16
+    SwiGLU shapes, of the checkout at ``other`` and of this one, each turn
+    in a process of its own -- other, this, this, other, since the card's
+    clocks drift between timings; prints each turn's times (ms), then per
+    kernel and shape the two sides' means and this / other."""
+    sides = {"other": [], "this": []}
     for label, root in (("other", other), ("this", ROOT), ("this", ROOT),
                         ("other", other)):
         res = subprocess.run([sys.executable, "-c", TURN_CODE], cwd=root,
-                             capture_output=True, text=True, timeout=600)
+                             capture_output=True, text=True, timeout=900)
         line = [ln for ln in res.stdout.splitlines() if ln.startswith("TURN ")]
         if res.returncode != 0 or not line:
             print(res.stdout + res.stderr, file=sys.stderr)
             return 1
         log(f"TURN {label} {root}: {line[0][5:]}")
+        sides[label].append(json.loads(line[0][5:]))
+    for name in sides["this"][0]:
+        o = [t[name] for t in sides["other"]]
+        t = [t[name] for t in sides["this"]]
+        log(f"  {name}: other {' / '.join(f'{x:.4f}' for x in o)} this "
+            f"{' / '.join(f'{x:.4f}' for x in t)} ms; this / other "
+            f"{statistics.mean(t) / statistics.mean(o):.3f}")
     return 0
 
 
@@ -1724,7 +1784,8 @@ def main() -> int:
         f"libraries in {build_s:.2f} s")
     for name, text in native.build_logs.items():
         for line in text.splitlines():
-            if any(w in line for w in ("registers", "spill", "error", "warning")):
+            if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                       "error", "warning")):
                 log(f"  [{name}] {line.strip()}")
 
     log("== kernels vs plain versions")

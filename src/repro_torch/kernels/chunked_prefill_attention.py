@@ -12,10 +12,15 @@ every chunk bucket, C = 1 included.
 Bound on an H100: depends on the chunk, as for the paged prefill kernel --
 bytes for a short chunk against a long prefix, operations for a long chunk.
 The kernel (``csrc/chunked_prefill_attention.cu``) is the paged prefill
-kernel with dense K/V staging: one CTA per (sequence, query head, 16-query
-tile), 32 keys at a time, stopping at the last live tile; f32 FMA on CUDA
-cores.  It reads the cache through its strides, so the engine's
-``cache[:, :-1]`` view (the sink row dropped) goes in without a copy.
+kernel with another key lookup: in bf16 the tensor-core body of
+``csrc/prefill_wgmma.cuh`` -- one CTA per (sequence, kv head, 64 packed
+(position, group head) rows), K/V staged once per kv head in bf16 by
+``cp.async``, both products on ``wgmma`` with P split into bf16 hi + lo
+halves -- and in f32 the CUDA-core body (16 query rows per CTA, f32 FMA).
+Both stop at the last live key tile.  It reads the cache through its
+strides, so the engine's ``cache[:, :-1]`` view (the sink row dropped) goes
+in without a copy, and on the same keys laid into pages it returns the
+paged kernel's output bit for bit.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.

@@ -12,26 +12,34 @@
 // This is the dense engine layout's attention: every round of the dense
 // path runs it once per layer, at every chunk bucket, C = 1 included.
 //
-// Grid (ceil(Sq / kBlockQ), Hq, B), the paged prefill kernel's: one CTA per
-// (sequence, query head, tile of kBlockQ queries) walks kTileK keys at a
-// time and stops at the last tile any of its rows can see (the Pallas
-// kernel's whole-tile skip), so the work stays O(prefix + chunk^2 / 2)
-// whatever Skv is.  Only the K/V staging differs from the paged kernel: key
-// `pos` of sequence b is read at b * batch_stride + pos * row_stride, so the
-// kernel takes the engine's cache[:, :-1] view (batch stride (S+1)*Hkv*hd)
-// as it is.  Staging, scoring and normalisation being the paged kernel's, it
-// returns the paged kernel's output bit for bit on the same keys laid into
-// pages.
+// The kernel reads key `pos` of sequence b at b * batch_stride + pos *
+// row_stride, so it takes the engine's cache[:, :-1] view (batch stride
+// (S+1)*Hkv*hd) as it is, never a copy.  Everything but where a key is read
+// is the paged prefill kernel's, so on the same keys laid into pages it
+// returns the paged kernel's output bit for bit.
 //
-// Bound on an H100: by chunk size, as the paged kernel -- bytes for short
-// chunks against a long prefix, tensor-core operations for long chunks; its
-// products are f32 FMA on CUDA cores, well above both bounds at large
-// chunks.
+// Bound on an H100: by chunk size, as the paged kernel -- bytes for a short
+// chunk against a long prefix, tensor-core operations for a long chunk.
+//   bf16: the tensor-core body of prefill_wgmma.cuh (what bounds it and
+//     what the design does about it are set out there): one CTA per
+//     (sequence, kv head, 64 packed (position, group head) rows), K/V
+//     staged once per kv head as bf16 by cp.async in a three-tile ring,
+//     S = Q K^T and O += P V on wgmma, P split into bf16 hi + lo halves
+//     (output within ~2^-17 sum(p |v|) / l of the f32 product).
+//   f32: the CUDA-core body of paged_attention_common.cuh, one CTA per
+//     (sequence, query head, tile of kBlockQ queries), kTileK keys at a
+//     time as f32 FMA.
+// Both stop at the last tile any of the CTA's rows can see (the Pallas
+// kernel's whole-tile skip), so the work stays O(prefix + chunk^2 / 2)
+// whatever Skv is.
 #include "dense_attention_common.cuh"
+#include "prefill_wgmma.cuh"
+
+#include <type_traits>
 
 namespace paged {
 
-constexpr int kBlockQ = 16;     // query rows per CTA: the paged kernel's tile
+constexpr int kBlockQ = 16;     // query rows per CTA (f32): the paged kernel's tile
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads) chunked_prefill_kernel(
@@ -90,6 +98,26 @@ __global__ void __launch_bounds__(kThreads) chunked_prefill_kernel(
   });
 }
 
+// bf16: the tensor-core body over keys read through the cache's strides.
+template <int HD>
+__global__ void __launch_bounds__(wg::kThreads) chunked_prefill_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k_cache,
+    const __nv_bfloat16* __restrict__ v_cache,
+    const int* __restrict__ kv_lens, const int* __restrict__ q_offset,
+    __nv_bfloat16* __restrict__ out, int Sq, int Skv, int n_q_heads,
+    int n_kv_heads, long long batch_stride, long long row_stride,
+    float scale_log2) {
+  const int kv_head = blockIdx.y, b = blockIdx.z;
+  const DenseKV<__nv_bfloat16> kv =
+      dense_kv(k_cache, v_cache, b, kv_head, HD, batch_stride, row_stride);
+  wg::prefill_rows<HD>(
+      q, out, kv.k, kv.v, [&](int pos) { return (size_t)pos * kv.row_stride; },
+      b, kv_head, blockIdx.x * wg::kRows, Sq, n_q_heads,
+      n_q_heads / n_kv_heads, min(__ldg(kv_lens + b), Skv),
+      __ldg(q_offset + b), scale_log2);
+}
+
 template <typename T>
 cudaError_t launch_chunked_prefill(const void* q, const void* k_cache,
                                    const void* v_cache, const int* kv_lens,
@@ -99,21 +127,46 @@ cudaError_t launch_chunked_prefill(const void* q, const void* k_cache,
                                    long long batch_stride,
                                    long long row_stride, float scale,
                                    cudaStream_t stream) {
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, n_q_heads, B);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int group = n_q_heads / n_kv_heads;
+    const dim3 grid((Sq * group + wg::kRows - 1) / wg::kRows, n_kv_heads, B);
+#define CHUNKED_PREFILL_LAUNCH(HD)                                          \
+  {                                                                         \
+    auto kernel = chunked_prefill_wgmma_kernel<HD>;                         \
+    const cudaError_t attr =                                                \
+        hopper::allow_smem(kernel, wg::Smem<HD>::kBytes);                   \
+    if (attr != cudaSuccess) return attr;                                   \
+    kernel<<<grid, wg::kThreads, wg::Smem<HD>::kBytes, stream>>>(           \
+        static_cast<const T*>(q), static_cast<const T*>(k_cache),           \
+        static_cast<const T*>(v_cache), kv_lens, q_offset,                  \
+        static_cast<T*>(out), Sq, Skv, n_q_heads, n_kv_heads, batch_stride, \
+        row_stride, scale * wg::kLog2e);                                    \
+  }
+    if (hd == 64) {
+      CHUNKED_PREFILL_LAUNCH(64);
+    } else if (hd == 128) {
+      CHUNKED_PREFILL_LAUNCH(128);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+#undef CHUNKED_PREFILL_LAUNCH
+  } else {
+    const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, n_q_heads, B);
 #define CHUNKED_PREFILL_LAUNCH(HD)                                          \
   chunked_prefill_kernel<T, HD><<<grid, kThreads, 0, stream>>>(             \
       static_cast<const T*>(q), static_cast<const T*>(k_cache),             \
       static_cast<const T*>(v_cache), kv_lens, q_offset,                    \
       static_cast<T*>(out), Sq, Skv, n_q_heads, n_kv_heads, batch_stride,   \
       row_stride, scale)
-  if (hd == 64) {
-    CHUNKED_PREFILL_LAUNCH(64);
-  } else if (hd == 128) {
-    CHUNKED_PREFILL_LAUNCH(128);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+    if (hd == 64) {
+      CHUNKED_PREFILL_LAUNCH(64);
+    } else if (hd == 128) {
+      CHUNKED_PREFILL_LAUNCH(128);
+    } else {
+      return cudaErrorInvalidValue;
+    }
 #undef CHUNKED_PREFILL_LAUNCH
+  }
   return cudaGetLastError();
 }
 

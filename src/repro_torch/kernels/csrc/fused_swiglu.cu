@@ -10,34 +10,41 @@
 // PyTorch, as the reference's is); it is ported as the reference exposes it,
 // through ops.swiglu_ffn.
 //
-// The TPU kernel walks F sequentially for each row tile and carries a
-// (blk_m, D) f32 accumulator across the F grid axis in VMEM.  CUDA blocks
-// run in no order and a (32, D) f32 accumulator does not fit a block's
-// registers at D = 4096, so here F is split across blocks instead: block
-// (i, j) computes the hidden tile of rows [32i, 32i + 32) and hidden columns
-// [128j, 128j + 128) in shared memory -- the gate and up products over all
-// of D, 32 columns of D at a time -- rounds it, multiplies it by its 128
-// rows of Wd, and writes that (32, D) f32 partial to a scratch buffer
-// (F / 128, M, D).  A second kernel sums the partials in a fixed order and
-// rounds the result, so the output is deterministic.  The hidden tile never
-// leaves the SM, as on the TPU; the partials cost 8 * M * D * F / 128 bytes
-// of traffic.
+// Bound on an H100: operations at model widths -- 6 M D F FLOPs against
+// 6 D F weight bytes in bf16: 35 GFLOP at M = 2048, D = 1024, F = 2816,
+// 36 us at the 989 TFLOP/s bf16 tensor-core peak -- and bytes at small M
+// (qwen3-8b's 302 MB of weights at M = 256: 90 us at 3.35 TB/s).
 //
-// Bound on an H100: operations, at these widths.  6 * M * D * F FLOPs
-// against the weights' 6 * D * F bytes (bf16): at M = 2048, D = 1024,
-// F = 2816 that is 35 GFLOP, 36 us at the 989 TFLOP/s bf16 tensor-core
-// peak.  In bf16 the products run on the tensor cores as wmma fragments
-// (16 x 16 x 16, f32 accumulators) fed from shared memory by plain 16-byte
-// loads; each block re-reads its Wg/Wu/Wd slices once per 32 rows of x, so
-// at large M the weight traffic through L2 grows with M / 32.  In f32 every
-// product is f32 FMA on CUDA cores (67 TFLOP/s peak), each thread owning a
-// 4 x 4 register tile.  TMA-fed wgmma with larger row tiles is the next
-// step.  Every division is IEEE (no fast math).
-#include <mma.h>
+// The TPU kernel walks F sequentially and carries a (blk_m, D) f32
+// accumulator across it in VMEM.  On this card that accumulator is the
+// whole register file at D = 1024 and 64 rows, so bf16 runs as two GEMMs on
+// the tensor cores instead, with the hidden activations H (M, F) in bf16 --
+// the TPU kernel's rounded hidden tile -- as the only intermediate:
+//   A: H = silu(x @ Wg) * (x @ Wu), the activation in the epilogue;
+//   B: out = H @ Wd.
+// Both are one CTA per (128 rows, BN output columns): a producer warpgroup
+// whose one thread keeps a ring of about 192 KB of shared-memory stages
+// filling by TMA (128-byte swizzle), and two consumer warpgroups of 64 rows
+// running wgmma (bf16 in, f32 accumulators) on them -- in A one m64n(2 BN)
+// k16 wgmma per step for the gate and up tiles together.  x and H are
+// K-major A operands and the row-major weights MN-major B operands, read
+// through wgmma's transpose bit, so no weight is copied.  BN is 128 where
+// that gives nine SMs in ten a CTA, else 64.  B adds its tensor-core sums
+// up in f32 every 128 terms, as the first kernel's partials did.  H costs
+// 4 M F bytes of traffic (23 MB at M = 2048) where the first kernel's f32
+// partials cost 8 M D F / 128 (185 MB).  The output is deterministic: no
+// atomics, sums in a fixed order.
+//
+// f32 keeps the first kernel: F split over blocks, each block's (32, 128)
+// hidden tile in shared memory multiplied into a (32, D) f32 partial by
+// f32 FMA on CUDA cores (4 x 4 per thread), and a second kernel summing the
+// ceil(F / 128) partials in block order.  Every division is IEEE (no fast
+// math).
+#include <cuda.h>   // CUtensorMap (the encoder is looked up at run time)
 
 #include <algorithm>
-#include <type_traits>
 
+#include "hopper_common.cuh"
 #include "paged_attention_common.cuh"   // dtype codes and conversions
 
 namespace swiglu {
@@ -177,161 +184,6 @@ __global__ void __launch_bounds__(kThreads) swiglu_partial_kernel(
   }
 }
 
-// -- bf16: the same tiles on the tensor cores --------------------------------
-// In bf16 the block computes the same (kBM, kBF) hidden tile and (kBM, D)
-// partial, but every product runs as 16 x 16 x 16 bf16 wmma fragments with
-// f32 accumulators: warp w owns rows 16 * (w / 4) and columns
-// 32 * (w % 4) .. + 32 of each tile (two fragments, for g and for u).  g and
-// u share a fragment layout, so silu(g) * u is formed on the fragments
-// themselves, staged once as f32 and rounded to bf16 for the down product.
-using namespace nvcuda;
-// row pitches padded by 16 bytes against bank conflicts (wmma wants a
-// multiple of 16 bytes, and each fragment's first element 32-byte aligned)
-constexpr int kLdx = kBK + 8;       // bf16
-constexpr int kLdw = kBF + 8;       // bf16
-constexpr int kLdf = kBF + 4;       // f32: the staged h and outputs
-constexpr int kWdRows = 64;         // rows of Wd staged per step
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// bf16 tiles are held as their 16-bit patterns (a union member must be
-// trivially constructible) and read through bf()
-struct __align__(32) WmmaTiles {
-  union {
-    struct {                          // the gate/up products' operands
-      uint16_t x[kBM * kLdx];
-      uint16_t wg[kBK * kLdw];
-      uint16_t wu[kBK * kLdw];
-    } ab;
-    float hf[kBM * kLdf];             // silu(g) * u in f32
-    struct {                          // the down product's B tile and output
-      uint16_t wd[kWdRows * kLdw];
-      float out[kBM * kLdf];
-    } d;
-  };
-  uint16_t h[kBM * kLdw];             // the hidden tile, rounded to bf16
-};
-
-__device__ __forceinline__ __nv_bfloat16* bf(uint16_t* p) {
-  return reinterpret_cast<__nv_bfloat16*>(p);
-}
-
-// Copy rows [row0, row0 + ROWS) and columns [col0, col0 + COLS) of a bf16
-// row-major matrix into dst (pitch LD) as 16-byte vectors; what lies outside
-// the matrix is 0.
-template <int ROWS, int COLS, int LD>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* __restrict__ dst,
-                                           const __nv_bfloat16* __restrict__ src,
-                                           int ld, int row0, int n_rows,
-                                           int col0, int n_cols) {
-  constexpr int kVecPerRow = COLS / 8;
-  for (int i = threadIdx.x; i < ROWS * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow, c = (i % kVecPerRow) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows && col0 + c < n_cols) {
-      v = __ldg(reinterpret_cast<const uint4*>(
-          src + (size_t)(row0 + r) * ld + col0 + c));
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) swiglu_partial_wmma_kernel(
-    const __nv_bfloat16* __restrict__ x,     // (M, D)
-    const __nv_bfloat16* __restrict__ wg,    // (D, F)
-    const __nv_bfloat16* __restrict__ wu,    // (D, F)
-    const __nv_bfloat16* __restrict__ wd,    // (F, D)
-    float* __restrict__ partial,             // (ceil(F / kBF), M, D)
-    int M, int D, int F) {
-  __shared__ WmmaTiles t;
-  const int m0 = blockIdx.x * kBM, f0 = blockIdx.y * kBF;
-  const int warp = threadIdx.x / 32;
-  const int r0 = 16 * (warp / 4), c0 = 32 * (warp % 4);
-
-  FragA a;
-  FragB b;
-  FragC g[2], u[2];
-  for (int j = 0; j < 2; ++j) {
-    wmma::fill_fragment(g[j], 0.f);
-    wmma::fill_fragment(u[j], 0.f);
-  }
-  for (int k0 = 0; k0 < D; k0 += kBK) {
-    stage_bf16<kBM, kBK, kLdx>(bf(t.ab.x), x, D, m0, M, k0, D);
-    stage_bf16<kBK, kBF, kLdw>(bf(t.ab.wg), wg, F, k0, D, f0, F);
-    stage_bf16<kBK, kBF, kLdw>(bf(t.ab.wu), wu, F, k0, D, f0, F);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::load_matrix_sync(a, bf(t.ab.x) + r0 * kLdx + kk, kLdx);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::load_matrix_sync(b, bf(t.ab.wg) + kk * kLdw + c0 + 16 * j,
-                               kLdw);
-        wmma::mma_sync(g[j], a, b, g[j]);
-        wmma::load_matrix_sync(b, bf(t.ab.wu) + kk * kLdw + c0 + 16 * j,
-                               kLdw);
-        wmma::mma_sync(u[j], a, b, u[j]);
-      }
-    }
-    __syncthreads();
-  }
-  // silu(g) * u on the fragments (one layout for both), staged as f32 and
-  // rounded to bf16 as the TPU kernel rounds the hidden tile
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-#pragma unroll
-    for (int e = 0; e < g[j].num_elements; ++e) {
-      const float gv = g[j].x[e];
-      const float sig = 1.f / (1.f + expf(-gv));
-      g[j].x[e] = gv * sig * u[j].x[e];
-    }
-    wmma::store_matrix_sync(t.hf + r0 * kLdf + c0 + 16 * j, g[j], kLdf,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBM * kBF; i += kThreads) {
-    const int r = i / kBF, c = i % kBF;
-    bf(t.h)[r * kLdw + c] = __float2bfloat16(t.hf[r * kLdf + c]);
-  }
-
-  // the down product h @ Wd[f0 : f0 + kBF], kBN output columns per pass
-  FragC acc[2];
-  for (int n0 = 0; n0 < D; n0 += kBN) {
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0.f);
-    for (int fc = 0; fc < kBF; fc += kWdRows) {
-      __syncthreads();     // h is written; the last reads of wd / out are done
-      stage_bf16<kWdRows, kBN, kLdw>(bf(t.d.wd), wd, D, f0 + fc, F, n0, D);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kWdRows; kk += 16) {
-        wmma::load_matrix_sync(a, bf(t.h) + r0 * kLdw + fc + kk, kLdw);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::load_matrix_sync(b, bf(t.d.wd) + kk * kLdw + c0 + 16 * j,
-                                 kLdw);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-    }
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(t.d.out + r0 * kLdf + c0 + 16 * j, acc[j], kLdf,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBM * kBN / 4; i += kThreads) {
-      const int r = i / (kBN / 4), c = (i % (kBN / 4)) * 4;
-      if (m0 + r < M) {
-        *reinterpret_cast<float4*>(
-            partial + ((size_t)blockIdx.y * M + m0 + r) * D + n0 + c) =
-            *reinterpret_cast<const float4*>(t.d.out + r * kLdf + c);
-      }
-    }
-  }
-}
-
 // out[i] = the partials' sum over the F blocks, in block order, rounded to T
 template <typename T>
 __global__ void __launch_bounds__(kThreads) swiglu_reduce_kernel(
@@ -345,55 +197,302 @@ __global__ void __launch_bounds__(kThreads) swiglu_reduce_kernel(
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* wg, const void* wu,
-                   const void* wd, float* partial, void* out, int M, int D,
-                   int F, cudaStream_t stream) {
+// f32: the partials, then their sum in block order
+cudaError_t launch_f32(const float* x, const float* wg, const float* wu,
+                       const float* wd, float* partial, float* out, int M,
+                       int D, int F, cudaStream_t stream) {
   const int n_parts = (F + kBF - 1) / kBF;
   const dim3 grid((M + kBM - 1) / kBM, n_parts);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    swiglu_partial_wmma_kernel<<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(wg),
-        static_cast<const T*>(wu), static_cast<const T*>(wd), partial, M, D,
-        F);
-  } else {
-    swiglu_partial_kernel<T><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(wg),
-        static_cast<const T*>(wu), static_cast<const T*>(wd), partial, M, D,
-        F);
-  }
+  swiglu_partial_kernel<float><<<grid, kThreads, 0, stream>>>(
+      x, wg, wu, wd, partial, M, D, F);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t n = (size_t)M * D;
   const int blocks =
       (int)std::min<size_t>((n + kThreads - 1) / kThreads, 132 * 16);
-  swiglu_reduce_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      partial, static_cast<T*>(out), n_parts, n);
+  swiglu_reduce_kernel<float><<<blocks, kThreads, 0, stream>>>(
+      partial, out, n_parts, n);
   return cudaGetLastError();
 }
 
 }  // namespace swiglu
 
-// C entry point, bound from Python with ctypes.  `partial` is f32 scratch of
-// ceil(F / 128) * M * D elements.  D must be a multiple of 128 and F of 8.
-// Returns the first launch's failing cudaError_t (0 = both launched).
+// -- bf16: two TMA-fed wgmma GEMMs -------------------------------------------
+namespace swiglu_wg {
+
+constexpr int kBM = 128;      // rows per CTA: two warpgroups of 64
+constexpr int kBK = 64;       // reduction columns per stage (128 bytes)
+constexpr int kThreads = 384;  // a producer warpgroup, two consumers
+constexpr int kConsumerWarps = 8;
+// The down product's k tiles per tensor-core sum.  Summed on the tensor
+// cores over all of F (12,288 at qwen3-8b's widths), a few outputs near 0
+// landed more than one bf16 step from the f32 product of the same hidden
+// values (chip_smoke.py phase 15's gate); sums of 2 * kBK = 128 terms, added
+// up in f32 on the CUDA cores, are what the first kernel's 128-column
+// partials were, and hold it.
+constexpr int kChunk = 2;
+
+// A ring of STAGES stages, each the A tile (kBM x kBK, K-major), then each
+// B matrix's tile (kBK x BN, MN-major, BN / 64 column blocks of 8 KB); after
+// the ring, the full and empty mbarriers of every stage.
+template <int BN, bool GATED, int STAGES>
+struct Tiles {
+  static constexpr int kA = kBM * kBK * 2;
+  static constexpr int kB = kBK * BN * 2;
+  static constexpr int kStage = kA + (GATED ? 2 : 1) * kB;
+  static constexpr int kBytes = STAGES * (kStage + 16) + 1024;
+  static_assert(kBytes <= 227 * 1024, "ring too deep for shared memory");
+};
+
+// out (M, N) = A (M, K) @ B0 (K, N), or with GATED the hidden tile
+// silu(A @ B0) * (A @ B1); bf16 in and out, f32 accumulators, each output
+// rounded once.  CTA (i, j) owns rows [128 i, 128 i + 128) and columns
+// [BN j, BN j + BN).  Warpgroup 0 is the producer: one thread keeps the
+// ring's stages loading by TMA as the consumers free them.  Warpgroups 1
+// and 2 consume, rows 64 (w - 1) .. + 63 each: they keep one k tile's
+// wgmma in flight while issuing the next, and free a stage (the empty
+// barrier, one arrival per warp) once the wgmma that read it is done.  TMA
+// fills what lies outside a matrix with zeros, so ragged M, N and K need no
+// masks but the store's.
+template <int BN, bool GATED, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
+    const __grid_constant__ CUtensorMap a_map,
+    const __grid_constant__ CUtensorMap b0_map,
+    const __grid_constant__ CUtensorMap b1_map,
+    __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+  using L = Tiles<BN, GATED, STAGES>;
+  constexpr int kStages = STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = base + kStages * L::kStage;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
+  const int n_k = (K + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32,
+            lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), kConsumerWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % kStages;
+        hopper::mbar_wait(empty(s), ((kt / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full(s), L::kStage);
+        const uint32_t st = base + s * L::kStage;
+        hopper::tma_load_2d(st, &a_map, full(s), kt * kBK, m0);
+#pragma unroll
+        for (int h = 0; h < BN / 64; ++h) {
+          hopper::tma_load_2d(st + L::kA + h * 8192, &b0_map, full(s),
+                              n0 + 64 * h, kt * kBK);
+          if (GATED) {
+            hopper::tma_load_2d(st + L::kA + L::kB + h * 8192, &b1_map,
+                                full(s), n0 + 64 * h, kt * kBK);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // With GATED one wgmma covers the gate and up tiles (2 BN columns: the
+  // two B tiles' column blocks lie 8 KB apart, one after the other), so acc
+  // holds g in its first BN / 2 registers and u in the rest.  Without, every
+  // kChunk k tiles the tensor cores' sum in acc is added to `total` in f32
+  // on the CUDA cores and the next chunk starts afresh.
+  constexpr int kN = GATED ? 2 * BN : BN;
+  float acc[kN / 2], total[GATED ? 1 : BN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (GATED ? 1 : BN / 2); ++i) total[i] = 0.f;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % kStages;
+    hopper::mbar_wait(full(s), (kt / kStages) & 1);
+    __syncwarp();                 // wgmma wants the warp converged
+    const uint32_t a_s = base + s * L::kStage + (wg - 1) * (64 * kBK * 2);
+    const uint32_t b_s = base + s * L::kStage + L::kA;
+    const int fresh = !GATED && kt % kChunk == 0;    // a chunk's first tile
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      hopper::mma_ss<kN, 1>(acc, hopper::desc(a_s + kk * 32, 16, 1024),
+                            hopper::desc(b_s + kk * 2048, 8192, 1024),
+                            kk == 0 && fresh ? 0 : 1);
+    }
+    hopper::wgmma_commit();
+    if (!GATED && (kt % kChunk == kChunk - 1 || kt == n_k - 1)) {
+      hopper::wgmma_wait<0>();    // the chunk's sum is complete
+      hopper::fence_operand(acc);
+#pragma unroll
+      for (int i = 0; i < (GATED ? 1 : BN / 2); ++i) total[i] += acc[i];
+    } else {
+      hopper::wgmma_wait<1>();    // k tile kt - 1's wgmma is done ...
+    }
+    hopper::fence_operand(acc);
+    __syncwarp();
+    if (kt > 0 && lane == 0) {    // ... so its stage is free
+      hopper::mbar_arrive(empty((kt - 1) % kStages));
+    }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_operand(acc);
+
+  // epilogue: rows m0 + 64 (wg - 1) + 16 warp + lane / 4 (+ 8), columns
+  // n0 + 8 j + 2 (lane % 4) (+ 1)
+  const int row = m0 + 64 * (wg - 1) + 16 * warp + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
+    if (col >= N) continue;               // N is even: col + 1 < N as well
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (row + 8 * i >= M) continue;
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if constexpr (GATED) {
+          // silu(g) * u as the f32 path computes it, rounded to bf16 as the
+          // TPU kernel rounds the hidden tile
+          const float g = acc[4 * j + 2 * i + e];
+          const float u = acc[BN / 2 + 4 * j + 2 * i + e];
+          v[e] = g * (1.f / (1.f + expf(-g))) * u;
+        } else {
+          v[e] = total[4 * j + 2 * i + e];
+        }
+      }
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8 * i) * N +
+                                         col) =
+          __floats2bfloat162_rn(v[0], v[1]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up in the driver at run time (no link
+// against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &status) != cudaSuccess ||
+        status != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A row-major bf16 matrix (rows, cols) read in boxes of box_rows rows x 64
+// columns (128 bytes), 128-byte swizzled, zeros outside the matrix.
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+              int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN, bool GATED, int STAGES>
+cudaError_t launch_gemm(const CUtensorMap& a, const CUtensorMap& b0,
+                        const CUtensorMap& b1, __nv_bfloat16* out, int M,
+                        int N, int K, cudaStream_t stream) {
+  using L = Tiles<BN, GATED, STAGES>;
+  auto kernel = gemm_kernel<BN, GATED, STAGES>;
+  const cudaError_t attr = hopper::allow_smem(kernel, L::kBytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((M + kBM - 1) / kBM, (N + BN - 1) / BN);
+  kernel<<<grid, kThreads, L::kBytes, stream>>>(a, b0, b1, out, M, N, K);
+  return cudaGetLastError();
+}
+
+// 128-column tiles where they give nine SMs in ten a CTA, else 64 (more
+// CTAs for a small M); each ring about 192 KB deep.
+template <bool GATED>
+cudaError_t launch_tiled(const CUtensorMap& a, const CUtensorMap& b0,
+                         const CUtensorMap& b1, __nv_bfloat16* out, int M,
+                         int N, int K, cudaStream_t stream) {
+  static const int n_sm = [] {
+    int dev = 0, n = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess) {
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    }
+    return n;
+  }();
+  const long long ctas = (long long)((M + kBM - 1) / kBM) * ((N + 127) / 128);
+  if (ctas * 10 >= n_sm * 9) {
+    return launch_gemm<128, GATED, GATED ? 4 : 6>(a, b0, b1, out, M, N, K,
+                                                  stream);
+  }
+  return launch_gemm<64, GATED, GATED ? 6 : 8>(a, b0, b1, out, M, N, K,
+                                               stream);
+}
+
+// h (M, F) = silu(x @ Wg) * (x @ Wu), then out (M, D) = h @ Wd
+cudaError_t launch_bf16(const void* x, const void* wg, const void* wu,
+                        const void* wd, __nv_bfloat16* h, void* out, int M,
+                        int D, int F, cudaStream_t stream) {
+  CUtensorMap x_map, wg_map, wu_map, h_map, wd_map;
+  if (!make_map(&x_map, x, M, D, kBM) || !make_map(&wg_map, wg, D, F, kBK) ||
+      !make_map(&wu_map, wu, D, F, kBK) || !make_map(&h_map, h, M, F, kBM) ||
+      !make_map(&wd_map, wd, F, D, kBK)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err =
+      launch_tiled<true>(x_map, wg_map, wu_map, h, M, F, D, stream);
+  if (err != cudaSuccess) return err;
+  return launch_tiled<false>(h_map, wd_map, wd_map,
+                            static_cast<__nv_bfloat16*>(out), M, D, F, stream);
+}
+
+}  // namespace swiglu_wg
+
+// C entry point, bound from Python with ctypes.  `scratch`: in f32 the
+// partials, ceil(F / 128) * M * D f32 (D a multiple of 128); in bf16 the
+// hidden activations, M * F bf16 (D a multiple of 8).  F is a multiple of 8.
+// Returns the first failing launch's cudaError_t (0 = both launched).
 extern "C" int fused_swiglu(const void* x, const void* w_gate,
                             const void* w_up, const void* w_down,
-                            void* partial, void* out, int M, int D, int F,
+                            void* scratch, void* out, int M, int D, int F,
                             int dtype, void* stream) {
-  if (D <= 0 || D % swiglu::kBN != 0 || F <= 0 || F % 8 != 0) {
+  if (D <= 0 || D % 8 != 0 || F <= 0 || F % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (M == 0) return 0;
-  float* p = static_cast<float*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case paged::kFloat32:
-      return (int)swiglu::launch<float>(x, w_gate, w_up, w_down, p, out, M,
-                                        D, F, s);
+      if (D % swiglu::kBN != 0) return (int)cudaErrorInvalidValue;
+      return (int)swiglu::launch_f32(
+          static_cast<const float*>(x), static_cast<const float*>(w_gate),
+          static_cast<const float*>(w_up), static_cast<const float*>(w_down),
+          static_cast<float*>(scratch), static_cast<float*>(out), M, D, F, s);
     case paged::kBFloat16:
-      return (int)swiglu::launch<__nv_bfloat16>(x, w_gate, w_up, w_down, p,
-                                                out, M, D, F, s);
+      return (int)swiglu_wg::launch_bf16(
+          x, w_gate, w_up, w_down, static_cast<__nv_bfloat16*>(scratch), out,
+          M, D, F, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,17 +1,21 @@
 // Shared pieces of the paged-attention kernels (decode and chunked prefill,
-// split and fused KV layouts): K/V tile staging through the block table, one
-// online-softmax step over a staged tile, and the final normalisation.  The
-// layouts differ only in where load_kv_tile reads a key's K and V (KVPool),
-// so a fused kernel on fuse_pages(k, v) stages the same f32 tile as the split
-// kernel on (k, v) and gives the same output bit for bit.
+// split and fused KV layouts) on CUDA cores: K/V tile staging through the
+// block table, one online-softmax step over a staged tile, and the final
+// normalisation.  The four decode kernels (paged and dense, in both dtypes)
+// and the f32 prefill kernels run this body; the bf16 prefill kernels run
+// the tensor-core body of prefill_wgmma.cuh instead.  The layouts differ
+// only in where load_kv_tile reads a key's K and V (KVPool), so a fused
+// kernel on fuse_pages(k, v) stages the same f32 tile as the split kernel on
+// (k, v) and gives the same output bit for bit.
 //
 // A CTA owns ROWS query rows that all read ONE kv head.  It walks the
 // sequence's keys kTileK at a time: the whole CTA stages the tile's K and V
 // rows (looked up page by page through the block table, which the CTA reads
 // itself) into shared memory as f32, each warp scores its rows against the
 // tile with lane j holding key j, and the (m, l, acc) online-softmax state
-// stays in registers.  Everything is f32 FMA on CUDA cores: simple and exact
-// enough to match the plain PyTorch version; tensor cores are later work.
+// stays in registers.  Everything is f32 FMA on CUDA cores: exact enough to
+// match the plain PyTorch version in f32, and the decode kernels are bound
+// by the bytes of K/V, not by their few FLOPs per byte.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -7,22 +7,24 @@
 // j < kv_len.  f32 online softmax with scale 1/sqrt(hd); query head h reads
 // kv head h / (Hq / Hkv).  A row with no valid key stores 0.
 //
-// Grid (ceil(Sq / kBlockQ), Hq, B): one CTA per (sequence, query head, tile of
-// kBlockQ queries).  It walks kTileK keys at a time only while
-// tile_start <= q_offset + last_row and tile_start < kv_len -- the Pallas
-// kernel's whole-tile skip (paged_prefill_attention.py:85-88) -- so the work
-// per sequence stays O(prefix + chunk^2 / 2) whatever the pool size.
-//
 // Bound on an H100: by chunk size.  Each query row does 4 * keys * hd FLOPs
 // for 2 * keys * hd * sizeof(T) / group bytes of K/V that the function must
 // read once, so the operations per byte grow with Sq: a 16-token chunk
 // against a 512-token prefix is a few FLOPs per byte (bytes bound), a
 // 256-token chunk a few hundred (operations bound against the 989 TFLOP/s
-// tensor-core peak).  This first kernel runs its products as f32 FMA on CUDA
-// cores (67 TFLOP/s) and re-reads each K/V tile once per query head and query
-// tile (from L2 for the most part), so it sits well above both bounds at
-// large chunks; moving the two products onto wgmma with TMA-staged pages is
-// the next step.
+// tensor-core peak).
+//   bf16: the tensor-core body of prefill_wgmma.cuh, which sets out the
+//     design: one CTA per (sequence, kv head, 64 packed (position, group
+//     head) rows), so a GQA group stages each K/V tile once; keys read one
+//     by one through the block table row (the CTA reads it itself) by
+//     cp.async into a three-tile bf16 ring; S = Q K^T and O += P V on
+//     wgmma, P split into bf16 hi + lo halves, f32 online softmax.
+//   f32: one CTA per (sequence, query head, tile of kBlockQ queries), the
+//     CUDA-core body of paged_attention_common.cuh (f32 FMA).
+// Both walk the keys only while tile_start <= q_offset + last_row and
+// tile_start < kv_len -- the Pallas kernel's whole-tile skip
+// (paged_prefill_attention.py:85-88) -- so the work per sequence stays
+// O(prefix + chunk^2 / 2) whatever the pool size.
 //
 // The kernel itself is in paged_prefill_kernel.cuh, shared with the fused
 // layout's entry point (paged_prefill_attention_fused.cu).

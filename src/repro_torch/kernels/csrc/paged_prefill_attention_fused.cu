@@ -9,14 +9,14 @@
 //
 // The TPU kernel transposes the pool to (n_pages, Hkv, 2, ps, hd) so that one
 // DMA per page fills a VMEM tile with K and V.  This kernel reads the pool as
-// it is stored: each staged key's K_h and V_h are one contiguous 2*hd run,
-// loaded by neighbouring threads in 16-byte vectors.  Scoring, the causal
-// whole-tile skip and normalisation are the split kernel's, so on
-// fuse_pages(k, v) it returns exactly the split kernel's output on (k, v).
+// it is stored: each staged key's K_h and V_h are one contiguous 2*hd run.
+// Everything but where a key's K and V rows live (KVPool) is the split
+// kernel's -- in bf16 the tensor-core body of prefill_wgmma.cuh, in f32 the
+// CUDA-core body -- so on fuse_pages(k, v) it returns exactly the split
+// kernel's output on (k, v).
 //
 // Bound on an H100: by chunk size, as for the split kernel -- bytes for short
-// chunks, tensor-core operations for long ones; its f32 CUDA-core products
-// leave it above both at large chunks.
+// chunks, tensor-core operations for long ones.
 #include "paged_prefill_kernel.cuh"
 
 // C entry point, bound from Python with ctypes.  `n_kv_heads` is Hkv (the

@@ -1,14 +1,20 @@
-// The paged chunked-prefill kernel, for the split and the fused KV layouts
-// (see paged_prefill_attention.cu for what it computes and how it is bound).
+// The paged chunked-prefill kernels, for the split and the fused KV layouts
+// (see paged_prefill_attention.cu for what they compute and how they are
+// bound).  bf16 runs the tensor-core body of prefill_wgmma.cuh, one CTA per
+// (sequence, kv head, 64 packed rows); f32 runs the CUDA-core body of
+// paged_attention_common.cuh, one CTA per (sequence, query head, 16 rows).
 // The C entry points live in paged_prefill_attention.cu (split) and
 // paged_prefill_attention_fused.cu (fused).
 #pragma once
 
 #include "paged_attention_common.cuh"
+#include "prefill_wgmma.cuh"
+
+#include <type_traits>
 
 namespace paged {
 
-constexpr int kBlockQ = 16;     // query rows per CTA
+constexpr int kBlockQ = 16;     // query rows per CTA (f32)
 
 template <typename T, int HD, bool FUSED>
 __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
@@ -72,6 +78,31 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   });
 }
 
+// bf16: the tensor-core body over keys read through the block table row.
+template <int HD, bool FUSED>
+__global__ void __launch_bounds__(wg::kThreads) paged_prefill_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k_pages,
+    const __nv_bfloat16* __restrict__ v_pages,
+    const int* __restrict__ block_tables, const int* __restrict__ kv_lens,
+    const int* __restrict__ q_offset, __nv_bfloat16* __restrict__ out, int Sq,
+    int n_q_heads, int n_kv_heads, int page_size, int max_pages,
+    float scale_log2) {
+  const int kv_head = blockIdx.y, b = blockIdx.z;
+  const int kv_len = min(__ldg(kv_lens + b), max_pages * page_size);
+  const int* table_row = block_tables + (size_t)b * max_pages;
+  const KVPool<__nv_bfloat16> pool = kv_pool<__nv_bfloat16, FUSED>(
+      k_pages, v_pages, n_kv_heads, kv_head, HD);
+  wg::prefill_rows<HD>(
+      q, out, pool.k + pool.k_head_off, pool.v + pool.v_head_off,
+      [&](int pos) {
+        const int page = __ldg(table_row + pos / page_size);
+        return ((size_t)page * page_size + pos % page_size) * pool.row_stride;
+      },
+      b, kv_head, blockIdx.x * wg::kRows, Sq, n_q_heads,
+      n_q_heads / n_kv_heads, kv_len, __ldg(q_offset + b), scale_log2);
+}
+
 template <typename T, bool FUSED>
 cudaError_t launch_prefill(const void* q, const void* k_pages,
                            const void* v_pages, const int* block_tables,
@@ -79,21 +110,46 @@ cudaError_t launch_prefill(const void* q, const void* k_pages,
                            int B, int Sq, int n_q_heads, int n_kv_heads,
                            int hd, int page_size, int max_pages, float scale,
                            cudaStream_t stream) {
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, n_q_heads, B);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const int group = n_q_heads / n_kv_heads;
+    const dim3 grid((Sq * group + wg::kRows - 1) / wg::kRows, n_kv_heads, B);
+#define PAGED_PREFILL_LAUNCH(HD)                                            \
+  {                                                                         \
+    auto kernel = paged_prefill_wgmma_kernel<HD, FUSED>;                    \
+    const cudaError_t attr =                                                \
+        hopper::allow_smem(kernel, wg::Smem<HD>::kBytes);                   \
+    if (attr != cudaSuccess) return attr;                                   \
+    kernel<<<grid, wg::kThreads, wg::Smem<HD>::kBytes, stream>>>(           \
+        static_cast<const T*>(q), static_cast<const T*>(k_pages),           \
+        static_cast<const T*>(v_pages), block_tables, kv_lens, q_offset,    \
+        static_cast<T*>(out), Sq, n_q_heads, n_kv_heads, page_size,         \
+        max_pages, scale * wg::kLog2e);                                     \
+  }
+    if (hd == 64) {
+      PAGED_PREFILL_LAUNCH(64);
+    } else if (hd == 128) {
+      PAGED_PREFILL_LAUNCH(128);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+#undef PAGED_PREFILL_LAUNCH
+  } else {
+    const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, n_q_heads, B);
 #define PAGED_PREFILL_LAUNCH(HD)                                            \
   paged_prefill_kernel<T, HD, FUSED><<<grid, kThreads, 0, stream>>>(        \
       static_cast<const T*>(q), static_cast<const T*>(k_pages),             \
       static_cast<const T*>(v_pages), block_tables, kv_lens, q_offset,      \
       static_cast<T*>(out), Sq, n_q_heads, n_kv_heads, page_size,           \
       max_pages, scale)
-  if (hd == 64) {
-    PAGED_PREFILL_LAUNCH(64);
-  } else if (hd == 128) {
-    PAGED_PREFILL_LAUNCH(128);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+    if (hd == 64) {
+      PAGED_PREFILL_LAUNCH(64);
+    } else if (hd == 128) {
+      PAGED_PREFILL_LAUNCH(128);
+    } else {
+      return cudaErrorInvalidValue;
+    }
 #undef PAGED_PREFILL_LAUNCH
+  }
   return cudaGetLastError();
 }
 

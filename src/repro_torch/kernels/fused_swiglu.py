@@ -10,12 +10,14 @@ activations f32.  No model path calls it (``layers.ffn`` is plain, as the
 reference's is); ``ops.swiglu_ffn`` exposes it.
 
 Bound on an H100: operations at model widths -- ``6 * M * D * F`` FLOPs
-against ``6 * D * F`` weight bytes in bf16.  The kernel
-(``csrc/fused_swiglu.cu``) splits F over blocks: each block keeps a (32, 128)
-hidden tile in shared memory, multiplies it into a (32, D) f32 partial, and a
-second kernel sums the ``ceil(F / 128)`` partials in a fixed order; its
-products are bf16 wmma fragments with f32 accumulators in bf16 and f32 FMA
-on CUDA cores in f32.
+against ``6 * D * F`` weight bytes in bf16 -- and bytes at small M.  In
+bf16 the kernel (``csrc/fused_swiglu.cu``) is two GEMMs on the tensor cores
+(wgmma fed by TMA through a four-stage shared-memory ring): the first
+writes the rounded hidden activations ``H = silu(x @ Wg) * (x @ Wu)``
+``(M, F)`` from its epilogue into bf16 scratch, the second computes ``H @
+Wd``.  In f32 it splits F over blocks, each writing an ``(M, D)`` f32
+partial from f32 FMA on CUDA cores, and sums the ``ceil(F / 128)`` partials
+in a fixed order.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -29,9 +31,10 @@ import torch
 from repro_torch.kernels import native
 from repro_torch.kernels.ref import fused_swiglu_plain
 
-HIDDEN_PER_BLOCK = 128   # kBF: one f32 partial (M, D) per 128 hidden columns
-D_MULTIPLE = 128         # kBN: D is walked 128 output columns at a time
-F_MULTIPLE = 8           # one 16-byte vector of bf16
+F_MULTIPLE = 8                # 16-byte rows of Wg, Wu and H: TMA strides
+D_MULTIPLE = {torch.bfloat16: 8,          # 16-byte rows of x and Wd
+              torch.float32: 128}         # the f32 kernel's 128-column passes
+F32_HIDDEN_PER_BLOCK = 128    # f32: one (M, D) f32 partial per 128 hidden columns
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
@@ -51,15 +54,18 @@ def fused_swiglu(x, w_gate, w_up, w_down):
         native.check_cuda_tensor(name, t, x.dtype, 2, dev)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
-    if D % D_MULTIPLE or F % F_MULTIPLE:
-        raise ValueError(f"D={D} must be a multiple of {D_MULTIPLE} and "
-                         f"F={F} of {F_MULTIPLE}")
-    n_parts = -(-F // HIDDEN_PER_BLOCK)
-    partial = torch.empty((n_parts, M, D), dtype=torch.float32, device=dev)
+    if D % D_MULTIPLE[x.dtype] or F % F_MULTIPLE:
+        raise ValueError(f"D={D} must be a multiple of {D_MULTIPLE[x.dtype]} "
+                         f"and F={F} of {F_MULTIPLE} in {x.dtype}")
+    if x.dtype == torch.bfloat16:
+        scratch = torch.empty((M, F), dtype=x.dtype, device=dev)   # H
+    else:
+        scratch = torch.empty((-(-F // F32_HIDDEN_PER_BLOCK), M, D),
+                              dtype=torch.float32, device=dev)     # partials
     out = torch.empty_like(x)
     fn = native.load("fused_swiglu", _ARGTYPES)
     rc = fn(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-            w_down.data_ptr(), partial.data_ptr(), out.data_ptr(), M, D, F,
+            w_down.data_ptr(), scratch.data_ptr(), out.data_ptr(), M, D, F,
             native.DTYPE_CODES[x.dtype], native.stream_ptr(dev))
     native.raise_on_error("fused_swiglu", rc)
     fused_swiglu.launches += 1

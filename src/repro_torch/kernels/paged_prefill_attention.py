@@ -16,12 +16,17 @@ once and does ``4 * Sq * keys * hd`` FLOPs per query head, so a 16-token
 chunk over a long prefix is bound by bytes and a 256-token chunk by
 operations.  The kernels (``csrc/paged_prefill_attention.cu`` and
 ``csrc/paged_prefill_attention_fused.cu``, one body in
-``csrc/paged_prefill_kernel.cuh``) run one CTA per (sequence, query head,
-16-query tile), walk the keys 32 at a time through the block table and stop
-at the last live tile (the TPU kernel's whole-tile skip), so work stays
-O(prefix + chunk^2 / 2); their products are f32 FMA on CUDA cores, which leaves them well above the operations bound at
-large chunks.  The fused kernel reads each key's K and V as one contiguous
-run and otherwise computes what the split kernel computes, bit for bit.
+``csrc/paged_prefill_kernel.cuh``) walk the keys through the block table and
+stop at the last live tile (the TPU kernel's whole-tile skip), so work stays
+O(prefix + chunk^2 / 2).  In bf16 they run the tensor-core body of
+``csrc/prefill_wgmma.cuh``: one CTA per (sequence, kv head, 64 packed
+(position, group head) rows), 64-key bf16 tiles staged once per kv head by
+``cp.async``, S = Q K^T and O += P V on ``wgmma`` with P split into bf16
+hi + lo halves, so the output stays within about 2^-17 sum(p |v|) / l of
+the f32 product.  In f32 they run one CTA per (sequence, query head,
+16-query tile) as f32 FMA on CUDA cores.  The fused kernel reads each
+key's K and V as one contiguous run and otherwise computes what the split
+kernel computes, bit for bit.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
