@@ -15,14 +15,24 @@ Phases, each of which raises (exit code != 0) on failure:
    the main path's shapes (full-width qwen1.5-0.5b: B=16, Hq=Hkv=16, hd=64,
    page 16, ragged kv_lens up to 512 through permuted block tables, every
    chunk bucket) and one GQA shape (32/8 heads, as llama3.2-1b) at head
-   dims 64 and 128; on rows with a valid key, |d| <= 1e-5 + 2**-7 |plain|
-   (one bf16 rounding step, and never over 2e-2) in bf16 and <= 1e-5 in f32.
-   In bf16 the prefill kernels run both products on the tensor cores
-   (wgmma, P split into two bf16 halves), in f32 on CUDA cores; the decode
-   kernels run on CUDA cores in both.  Times the kernel, the plain version and ``scaled_dot_product_attention``
-   over the gathered dense K/V (``library_ms``, a yardstick the port never
-   calls) with CUDA events, L2 flushed before each launch; computes the
-   least time the card could take (``bound_ms``).
+   dims 64 and 128, and the decode kernel also at groups 12 (96/8 heads,
+   as mistral-large-123b) and 48 (48/1, as granite-34b), hd 128, and at B=4
+   over up to 2,048 keys (GQA 32/8 and group 48: several splits merged);
+   on rows with a valid key, |d| <= 1e-5 + 2**-7 |plain| (one bf16
+   rounding step, and never over 2e-2) in bf16 and <= 1e-5 in f32; a row
+   with no valid key stores 0; at every decode case a NaN key (K and V) in the first
+   split of one sequence reaches that sequence's output and changes no
+   other.  In bf16 the prefill kernels run both products on the tensor
+   cores (wgmma, P split into two bf16 halves), in f32 on CUDA cores; the
+   decode kernels run the split-K body (keys split over CTAs, merged in the
+   same launch), bf16 on mma.sync (P split likewise), f32 on CUDA
+   cores.  Times the kernel, the plain version and
+   ``scaled_dot_product_attention`` over the gathered dense K/V
+   (``library_ms``, a yardstick the port never calls) with CUDA events, L2
+   flushed before each launch; the decode kernel and SDPA also on the
+   device alone (the card spins while the host enqueues the call), and the
+   decode wrapper's host time per call; computes the least time the card
+   could take (``bound_ms``).
 4. swap kernels: the four KV swap kernels against their plain versions on
    the serve pool ``(24, 2049, 16, 16, 64)`` in bf16 and f32, id buckets 8
    and 32 of permuted ids padded with the sink page (one all-zero page and
@@ -56,10 +66,11 @@ Phases, each of which raises (exit code != 0) on failure:
    through the kernels on the card against the same rounds on the CPU
    through the plain versions (same bf16 weights; bf16 tolerance).
 10. fused kernels: the two fused-layout attention kernels against their
-   plain versions at phase 3's shapes and tolerances, on ``fuse_pages(k,
-   v)`` of phase 3's kind of inputs; each must also equal the split kernel
-   on ``(k, v)`` BITWISE.  Timed like phase 3, and against the split kernel
-   on the same inputs in turns (fused, split, split, fused).
+   plain versions at phase 3's shapes (decode at groups 12 and 48 too) and
+   tolerances, on ``fuse_pages(k, v)`` of phase 3's kind of inputs, with
+   phase 3's NaN check; each must also equal the split kernel on ``(k, v)``
+   BITWISE.  Timed like phase 3, and against the split kernel on the same
+   inputs in turns (fused, split, split, fused).
 11. fused swap kernels: phase 4's bitwise cases on the fused serve pool
    ``(24, 2049, 16, 32, 64)``, bucket 32, bf16.
 12. serve, fused: ``--full --kv-layout fused`` (static budget, recompute):
@@ -82,14 +93,17 @@ Phases, each of which raises (exit code != 0) on failure:
    ``(16, 513, 16, 64)`` as the engine passes it (the ``[:, :-1]`` view,
    not contiguous), ragged kv_lens <= 512, every bucket Sq in {1, 16, 32,
    64, 128, 256}, and GQA 32/8 at hd 64 and 128; ``decode_attention`` at
-   B=16, S=512, 16/16, hd 64, GQA, and B=4, S=32,768, 32/8, hd 128
-   (qwen3-8b's attention widths).  Phase 3's tolerances against the plain
-   versions; on the sink views each output BITWISE equal to the paged
-   kernel's on the same keys laid into pages (the bf16 kernels share one
-   tensor-core body and one shared-memory layout); a NaN key reaches its
-   row's output and no other.  Timed like phase 3 (``library_ms``: SDPA over the
-   same cache with the same mask).  Then the same NaN check through the
-   four paged kernels.
+   B=16, S=512, 16/16, hd 64, GQA, groups 12 (96/8) and 48 (48/1) at hd
+   128, B=4, S=2,048 (32/8 and 48/1: several splits merged), and B=4,
+   S=32,768, 32/8, hd 128 (qwen3-8b's attention widths).  Phase 3's
+   tolerances against the plain versions; on the sink views each output
+   BITWISE equal to the paged kernel's on the same keys laid into
+   pages (each pair shares one body: the prefill one tensor-core body and
+   one shared-memory layout, the decode one split-K body whose split
+   points depend only on the key index); a NaN key reaches its row's
+   output and no other (every decode case).  Timed like phase 3
+   (``library_ms``: SDPA over the same cache with the same mask).  Then
+   the same NaN check through the four paged kernels.
 15. fused SwiGLU: ``fused_swiglu`` on full-width qwen1.5-0.5b's layer-0
    FFN weights (D=1024, F=2816) at M in {16, 256, 2048}, bf16 and f32, and
    at qwen3-8b's widths (D=4096, F=12,288, seeded) at M=256 in bf16 (two
@@ -118,19 +132,28 @@ Phases, each of which raises (exit code != 0) on failure:
    second decode: exactly the victim is shed (``numerics``), every other
    request finishes, nothing stays poisoned and every KV cache value is
    finite at the end.
+20. serve at granite-34b's published widths (d_model 6144, 48 query heads
+   over 1 KV head: decode group 48, hd 128) with ``n_layers`` cut to 2
+   (printed as reduced): the split layout, greedy, 8 requests through
+   ``TorchEngine``; every request finishes, the decode kernel runs twice
+   per pure-decode round and the prefill kernel twice per round with C > 1.
 
 The second-to-last line is a JSON object listing every kernel with its
 numbers; the last line is ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --turns OTHER_CHECKOUT
+    python3 chip_smoke.py --turns OTHER_CHECKOUT [FILTER]
 
-times the kernels of phases 3 and 10 (paged decode, and paged prefill at
-every bucket, split and fused), 14 (chunked prefill at every bucket) and
-15 (bf16 SwiGLU at every shape) of another checkout (say the parent
-commit, unpacked with ``git archive``) and of this one in turns, other /
-this / this / other, each in a process of its own, through the other
-checkout's own ``chip_smoke.py`` functions; then prints, per kernel and
-shape, both sides' times and this / other.
+times the kernels of phases 3 and 10 (paged decode at groups 1, 12 and 48,
+and paged prefill at every bucket, split and fused), 14 (chunked prefill at
+every bucket; dense decode at the serve shape, groups 12 and 48 and the 32k
+cache) and 15 (bf16 SwiGLU at every shape) of another checkout (say the
+parent commit, unpacked with ``git archive``) and of this one in turns,
+other / this / this / other, each in a process of its own, through the
+other checkout's own ``chip_smoke.py`` functions; the decode kernels both
+as phase 3 times them and on the device alone.  Each case draws its inputs
+from a seed of its own; a case a checkout refuses (a decode group it does
+not take) is skipped on its side; FILTER keeps the cases whose name holds
+it.  Then prints, per kernel and shape, both sides' times and this / other.
 """
 from __future__ import annotations
 
@@ -154,6 +177,7 @@ TOL_F32 = (1e-5, 0.0)          # (atol, rtol)
 TOL_BF16 = (1e-5, 2.0 ** -7)
 TOL_BF16_CAP = 2e-2
 ITERS = 20
+HOST_AHEAD_CYCLES = 500_000    # a spin of ~0.25 ms before a device timing
 
 
 def log(msg: str) -> None:
@@ -185,19 +209,32 @@ def chunk_lens_for(gen, B, Sq, max_ctx, dev):
 # -- timing --------------------------------------------------------------------
 class Timer:
     """Median of ITERS single launches, each timed with CUDA events after an
-    L2 flush (a real serving round finds this layer's pages cold)."""
+    L2 flush (a real serving round finds this layer's pages cold).  The clock
+    runs from the end of the flush to the end of the call, so it holds
+    whatever of the call's host time outlasts the flush: what a caller sees
+    on an idle card.  ``device`` first lets the card spin for
+    HOST_AHEAD_CYCLES, so that the host has enqueued the whole call before
+    the clock starts: the device time alone."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
     def __call__(self, fn) -> float:
+        return self._median(fn, host_ahead=False)
+
+    def device(self, fn) -> float:
+        return self._median(fn, host_ahead=True)
+
+    def _median(self, fn, host_ahead) -> float:
         torch = self.torch
         for _ in range(3):
             fn()
         times = []
         for _ in range(ITERS):
             self.flush.zero_()
+            if host_ahead:
+                torch.cuda._sleep(HOST_AHEAD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -206,6 +243,20 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+
+def host_us(torch, fn, n=50) -> float:
+    """Mean host time of one call (µs), ``n`` calls enqueued back to back:
+    the wrapper's checks, allocations and launch, while the card runs
+    behind."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
 
 
 def bound_ms(n_bytes: float, n_flops: float,
@@ -282,6 +333,10 @@ def decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, ps, max_pages, n_pages,
     if fused:
         require(same_bits(got, paged_decode_attention(*split_args)),
                 "fused decode kernel differs from the split kernel")
+    # a NaN key in the first split of the longest sequence (row 1)
+    pos = min(100, max_ctx - 1)
+    page = (int(tables[1, pos // ps]), pos % ps)
+    poison_check(torch, kernel, args, (1,) if fused else (1, 2), 1, page)
     if not timed:
         return {"max_abs_err": err}
     # library yardstick: SDPA over the gathered dense K/V
@@ -294,8 +349,12 @@ def decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, ps, max_pages, n_pages,
     ms, turns = time_kernel(timer, lambda: kernel(*args),
                             lambda: paged_decode_attention(*split_args), fused)
     plain_ms = timer(lambda: plain(*args))
-    lib_ms = timer(lambda: F.scaled_dot_product_attention(
-        q4, kd, vd, attn_mask=mask))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, kd, vd, attn_mask=mask, enable_gqa=Hq != Hkv)
+    lib_ms = timer(sdpa)
+    device = {"device_ms": timer.device(lambda: kernel(*args)),
+              "library_device_ms": timer.device(sdpa),
+              "host_us": host_us(torch, lambda: kernel(*args))}
     keys = int(kv_lens.sum())
     esz = q.element_size()
     n_pages_live = int(((kv_lens + ps - 1) // ps).sum())
@@ -305,7 +364,7 @@ def decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, ps, max_pages, n_pages,
     b_ms, b_by = bound_ms(n_bytes, n_flops)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "turns": turns,
+            "turns": turns, **device,
             "shape": f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps} "
                      f"kv_lens<={max_ctx} (sum {keys})"}
 
@@ -387,6 +446,13 @@ def split_note(r) -> str:
             + " / ".join(f"{t:.4f}" for t in r["turns"]) + " ms")
 
 
+def device_note(r) -> str:
+    """The device-only times and the host time per call of a decode case."""
+    return (f"; device only: kernel {r['device_ms']:.4f} ms, sdpa "
+            f"{r['library_device_ms']:.4f} ms; kernel host time "
+            f"{r['host_us']:.1f} us per call")
+
+
 def kernel_phase(torch, fused=False):
     """Phase 3 (split kernels) or, with ``fused``, phase 10 (fused kernels):
     the same shapes, tolerances and timings."""
@@ -397,6 +463,11 @@ def kernel_phase(torch, fused=False):
     qwen = dict(B=16, Hq=16, Hkv=16, hd=64, ps=16, max_pages=33, n_pages=2049)
     gqa = dict(qwen, Hq=32, Hkv=8)                  # llama3.2-1b heads
     gqa128 = dict(gqa, hd=128)                      # the other head dim built
+    group12 = dict(qwen, Hq=96, Hkv=8, hd=128)      # mistral-large-123b heads
+    group48 = dict(qwen, Hq=48, Hkv=1, hd=128)      # granite-34b heads (MQA)
+    # up to 2,048 keys: up to four decode splits merged in one launch
+    merge = dict(gqa128, B=4, max_pages=129)
+    merge48 = dict(group48, B=4, max_pages=129)
     bf16, f32 = torch.bfloat16, torch.float32
     layout = "fused" if fused else "split"
     results = {}
@@ -405,14 +476,35 @@ def kernel_phase(torch, fused=False):
     log(f"  decode  {layout} qwen bf16 {dec['shape']}: err "
         f"{dec['max_abs_err']:.3e} kernel {dec['ms']:.4f} ms plain "
         f"{dec['plain_ms']:.4f} ms sdpa {dec['library_ms']:.4f} ms bound "
-        f"{dec['bound_ms']:.4f} ms ({dec['bound_by']})" + split_note(dec))
+        f"{dec['bound_ms']:.4f} ms ({dec['bound_by']})" + split_note(dec)
+        + device_note(dec))
     results["paged_decode_attention" + ("_fused" if fused else "")] = dec
+    worst = dec["max_abs_err"]
     for dtype, shape, name in ((bf16, gqa, "gqa bf16"),
                                (bf16, gqa128, "gqa hd=128 bf16"),
-                               (f32, qwen, "qwen f32")):
+                               (f32, qwen, "qwen f32"),
+                               (f32, group12, "group 12 f32"),
+                               (f32, group48, "group 48 f32"),
+                               (bf16, merge, "gqa hd=128 2048 keys bf16"),
+                               (f32, merge, "gqa hd=128 2048 keys f32"),
+                               (bf16, merge48, "group 48 2048 keys bf16")):
         r = decode_case(torch, timer, gen, dtype=dtype, timed=False,
                         fused=fused, **shape)
+        worst = max(worst, r["max_abs_err"])
         log(f"  decode  {layout} {name}: err {r['max_abs_err']:.3e}")
+    for shape, name in ((group12, "group 12 bf16"),
+                        (group48, "group 48 bf16")):
+        r = decode_case(torch, timer, gen, dtype=bf16, timed=True,
+                        fused=fused, **shape)
+        worst = max(worst, r["max_abs_err"])
+        log(f"  decode  {layout} {name} {r['shape']}: err "
+            f"{r['max_abs_err']:.3e} kernel {r['ms']:.4f} ms plain "
+            f"{r['plain_ms']:.4f} ms sdpa {r['library_ms']:.4f} ms bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})" + split_note(r)
+            + device_note(r))
+    log("  every decode output: a NaN key reaches its sequence's output and "
+        "no other")
+    dec["max_abs_err"] = worst
     buckets = {}
     for Sq in (16, 32, 64, 128, 256):
         r = prefill_case(torch, timer, gen, Sq=Sq, dtype=bf16, timed=True,
@@ -1131,16 +1223,16 @@ def as_pages(torch, gen, k, v, ps):
     return (*pools, tables.to(torch.int32).contiguous())
 
 
-def poison_check(torch, kernel, args, key_args, b, pos):
-    """NaN at key ``pos`` of sequence ``b`` (K and V, every head) must reach
-    that sequence's output and no other: the NaN guard's trap.
-    ``key_args`` are the indices in ``args`` of the K and V tensors, indexed
-    [b, pos] (dense caches)."""
+def poison_check(torch, kernel, args, key_args, b, where):
+    """NaN at one key of sequence ``b`` (K and V, every head) must reach that
+    sequence's output and no other: the NaN guard's trap.  ``key_args`` are
+    the indices in ``args`` of the K and V tensors, and ``where`` the key's
+    index in them: (b, pos) in dense caches, (page, row) in page pools."""
     clean = kernel(*args)
     args = list(args)
     for i in key_args:
         args[i] = args[i].clone()
-        args[i][b, pos] = float("nan")
+        args[i][where] = float("nan")
     got = kernel(*args)
     torch.cuda.synchronize()
     require(bool(torch.isnan(got[b]).any()),
@@ -1182,7 +1274,7 @@ def dense_prefill_case(torch, timer, gen, *, B, Sq, Hq, Hkv, hd, S, dtype,
     if not timed:
         return {"max_abs_err": err}
     poison_check(torch, chunked_prefill_attention, args, (1, 2), 2,
-                 int(q_offset[2]) - 1)
+                 (2, int(q_offset[2]) - 1))
     pos_q = q_offset[:, None].long() + torch.arange(Sq, device=dev)[None, :]
     pos_k = torch.arange(S, device=dev)
     mask = ((pos_k[None, None, :] <= pos_q[:, :, None])
@@ -1235,22 +1327,26 @@ def dense_decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, S, dtype, timed,
                                                       kv_lens)),
                 "decode kernel differs from the paged decode kernel")
         del kp, vp
+    poison_check(torch, decode_attention, args, (1, 2), 1, (1, S - 1))
     if not timed:
         return {"max_abs_err": err}
-    poison_check(torch, decode_attention, args, (1, 2), 1, S - 1)
     mask = (torch.arange(S, device=dev)[None, :]
             < kv_lens[:, None].long())[:, None, None, :]
     q4, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
     ms = timer(lambda: decode_attention(*args))
     plain_ms = timer(lambda: decode_attention_plain(*args))
-    lib_ms = timer(lambda: F.scaled_dot_product_attention(
-        q4, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv)
+    lib_ms = timer(sdpa)
     keys = int(kv_lens.sum())
     esz = q.element_size()
     n_bytes = 2 * q.numel() * esz + 2 * keys * Hkv * hd * esz + 4 * B
     b_ms, b_by = bound_ms(n_bytes, 4 * keys * Hq * hd)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "device_ms": timer.device(lambda: decode_attention(*args)),
+            "library_device_ms": timer.device(sdpa),
+            "host_us": host_us(torch, lambda: decode_attention(*args)),
             "shape": f"B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S} kv_lens<={S} "
                      f"(sum {keys}){' sink view' if sink else ''}"}
 
@@ -1308,6 +1404,10 @@ def dense_kernel_phase(torch):
     qwen = dict(B=16, Hq=16, Hkv=16, hd=64, S=512)      # the dense serve slots
     gqa = dict(qwen, Hq=32, Hkv=8)
     gqa128 = dict(gqa, hd=128)
+    group12 = dict(qwen, Hq=96, Hkv=8, hd=128)          # mistral-large-123b
+    group48 = dict(qwen, Hq=48, Hkv=1, hd=128)          # granite-34b (MQA)
+    merge = dict(gqa128, B=4, S=2048)       # up to four decode splits merged
+    merge48 = dict(group48, B=4, S=2048)
     results = {}
     buckets = {}
     for Sq in (1, 16, 32, 64, 128, 256):
@@ -1335,15 +1435,29 @@ def dense_kernel_phase(torch):
     log(f"  decode qwen bf16 {dec['shape']}: err {dec['max_abs_err']:.3e} "
         f"kernel {dec['ms']:.4f} ms plain {dec['plain_ms']:.4f} ms sdpa "
         f"{dec['library_ms']:.4f} ms bound {dec['bound_ms']:.4f} ms "
-        f"({dec['bound_by']})")
+        f"({dec['bound_by']})" + device_note(dec))
     worst = dec["max_abs_err"]
     for dtype, shape, name in ((bf16, gqa, "gqa bf16"),
                                (bf16, gqa128, "gqa hd=128 bf16"),
-                               (f32, qwen, "qwen f32")):
+                               (f32, qwen, "qwen f32"),
+                               (f32, group12, "group 12 f32"),
+                               (f32, group48, "group 48 f32"),
+                               (bf16, merge, "gqa hd=128 S=2048 bf16"),
+                               (f32, merge, "gqa hd=128 S=2048 f32"),
+                               (bf16, merge48, "group 48 S=2048 bf16")):
         r = dense_decode_case(torch, timer, gen, dtype=dtype, timed=False,
                               **shape)
         worst = max(worst, r["max_abs_err"])
         log(f"  decode {name}: err {r['max_abs_err']:.3e}")
+    for shape, name in ((group12, "group 12 bf16"),
+                        (group48, "group 48 bf16")):
+        r = dense_decode_case(torch, timer, gen, dtype=bf16, timed=True,
+                              **shape)
+        worst = max(worst, r["max_abs_err"])
+        log(f"  decode {name} {r['shape']}: err {r['max_abs_err']:.3e} "
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa "
+            f"{r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})" + device_note(r))
     # qwen3-8b's attention widths over a 32k cache: 268 MB per tensor
     long = dense_decode_case(torch, timer, gen, B=4, Hq=32, Hkv=8, hd=128,
                              S=32768, dtype=bf16, timed=True, sink=False)
@@ -1351,7 +1465,7 @@ def dense_kernel_phase(torch):
     log(f"  decode long bf16 {long['shape']}: err {long['max_abs_err']:.3e} "
         f"kernel {long['ms']:.4f} ms plain {long['plain_ms']:.4f} ms sdpa "
         f"{long['library_ms']:.4f} ms bound {long['bound_ms']:.4f} ms "
-        f"({long['bound_by']})")
+        f"({long['bound_by']})" + device_note(long))
     log("  decode outputs on the sink views bitwise equal to the paged decode "
         "kernel's; a NaN key reaches its row")
     dec["max_abs_err"] = worst
@@ -1688,65 +1802,187 @@ def nan_guard_phase(torch, layout):
         f"{res.wall_s:.3f} s over {res.rounds} rounds")
 
 
+# -- phase 20: the decode kernel at granite-34b's group, served ----------------
+GRANITE_LAYERS = 2      # of granite-34b's 88: the widths stay published
+
+
+def granite_serve_phase(torch):
+    """A short serve through ``TorchEngine`` at granite-34b's published
+    widths -- d_model 6144, 48 query heads over 1 KV head (MQA: a decode
+    group of 48), hd 128, d_ff 24,576, vocab 49,152 -- with ``n_layers`` cut
+    to GRANITE_LAYERS, seeded bf16 weights, the split layout, greedy, 8 of
+    the serve workload's requests.  Every request must finish with its full
+    token count; the decode kernel runs ``n_layers`` times per pure-decode
+    round and the prefill kernel ``n_layers`` times per round with C > 1."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.engine.engine import TorchEngine, serve
+    from repro_torch.engine.kv_cache import pool_for_model
+    from repro_torch.launch import serve as serve_cli
+
+    full = get_config("granite-34b")
+    cfg = dataclasses.replace(full, n_layers=GRANITE_LAYERS)
+    log(f"  {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} query heads over "
+        f"{cfg.n_kv_heads} KV head(s), hd {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; reduced: n_layers "
+        f"{full.n_layers} -> {cfg.n_layers}")
+    args = serve_cli.build_parser().parse_args(
+        ["--full", "--arch", cfg.name, "--n-requests", "8"])
+    engine = TorchEngine(cfg, serve_cli._engine_cfg(args), device="cuda")
+    kv_pool = pool_for_model(cfg, n_blocks=args.kv_blocks)
+    engine.bind_kv_pool(kv_pool)
+    engine.warmup()
+    sched = serve_cli.build_scheduler(args)
+    reqs = serve_cli.workload(args, cfg)
+    torch.cuda.synchronize()
+    engine.bucket_rounds.clear()
+    zero_launches()
+    res = serve(reqs, sched, engine, kv_pool=kv_pool)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    toks = check_outputs(res, reqs, cfg.vocab_size)
+    decode_rounds = engine.bucket_rounds.get(1, 0)
+    mixed_rounds = sum(n for c, n in engine.bucket_rounds.items() if c > 1)
+    require(decode_rounds > 0, f"no pure-decode round: {engine.bucket_rounds}")
+    require(launches["paged_decode_attention"] == cfg.n_layers * decode_rounds,
+            f"decode launches {launches} != {cfg.n_layers} x {decode_rounds} "
+            "pure-decode rounds")
+    require(launches["paged_prefill_attention"] == cfg.n_layers * mixed_rounds,
+            f"prefill launches {launches} != {cfg.n_layers} x {mixed_rounds} "
+            "rounds with C > 1")
+    log(f"  served {res.report.n_finished}/{res.report.n_total} requests, "
+        f"{len(toks)} output tokens in {res.wall_s:.3f} s over {res.rounds} "
+        f"rounds (by chunk bucket: {dict(sorted(engine.bucket_rounds.items()))})"
+        f"; output tok/s {len(toks) / res.wall_s:.1f}")
+    log(f"  kernel launches: { {n: c for n, c in launches.items() if c} }")
+    del engine, kv_pool
+
+
 # -- --turns: the attention and SwiGLU kernels of two trees in turns ----------
 TURN_CODE = """
-import json, sys
+import json, sys, zlib
 sys.path.insert(0, "src")
 import torch, chip_smoke as cs
 from repro_torch.models import layers as L
 torch.backends.cuda.matmul.allow_tf32 = False
 bf16 = torch.bfloat16
-timer = cs.Timer(torch)
-gen = torch.Generator(device="cuda").manual_seed(0)
+only = sys.argv[1] if len(sys.argv) > 1 else ""
+
+
+class DeviceTimer(cs.Timer):
+    # the device time alone: the card spins while the host enqueues the call
+    # (written out: the other checkout's Timer may not have device())
+    def __call__(self, fn):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(cs.ITERS):
+            self.flush.zero_()
+            torch.cuda._sleep(HOST_AHEAD_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
+
+
+timer, dtimer = cs.Timer(torch), DeviceTimer(torch)
+gen = torch.Generator(device="cuda")
 paged = dict(B=16, Hq=16, Hkv=16, hd=64, ps=16, max_pages=33, n_pages=2049)
 dense = dict(B=16, Hq=16, Hkv=16, hd=64, S=512)
+heads = {"": {}, " group 12": dict(Hq=96, Hkv=8, hd=128),
+         " group 48": dict(Hq=48, Hkv=1, hd=128)}
 ms = {}
+
+
+def case(name, fn):
+    # each case's inputs from its own seed; a group the checkout refuses
+    # (ValueError) is skipped
+    if only not in name:
+        return
+    gen.manual_seed(zlib.crc32(name.encode()))
+    try:
+        ms[name] = fn()
+    except ValueError as e:
+        print(f"skipped {name}: {e}", flush=True)
+
+
 for fused in (False, True):
     lay = "fused" if fused else "split"
-    ms["paged_decode_attention " + lay] = cs.decode_case(
-        torch, timer, gen, dtype=bf16, timed=True, fused=fused, **paged)["ms"]
+    for g, h in heads.items():
+        for t, label in ((timer, ""), (dtimer, " device")):
+            case(f"paged_decode_attention {lay}{g}{label}",
+                 lambda: cs.decode_case(torch, t, gen, dtype=bf16, timed=True,
+                                        fused=fused, **{**paged, **h})["ms"])
     for Sq in (16, 32, 64, 128, 256):
-        ms[f"paged_prefill_attention {lay} Sq={Sq}"] = cs.prefill_case(
-            torch, timer, gen, Sq=Sq, dtype=bf16, timed=True, fused=fused,
-            **paged)["ms"]
+        case(f"paged_prefill_attention {lay} Sq={Sq}",
+             lambda: cs.prefill_case(torch, timer, gen, Sq=Sq, dtype=bf16,
+                                     timed=True, fused=fused, **paged)["ms"])
 for Sq in (1, 16, 32, 64, 128, 256):
-    ms[f"chunked_prefill_attention Sq={Sq}"] = cs.dense_prefill_case(
-        torch, timer, gen, Sq=Sq, dtype=bf16, timed=True, **dense)["ms"]
+    case(f"chunked_prefill_attention Sq={Sq}",
+         lambda: cs.dense_prefill_case(torch, timer, gen, Sq=Sq, dtype=bf16,
+                                       timed=True, **dense)["ms"])
+longc = dict(B=4, Hq=32, Hkv=8, hd=128, S=32768, sink=False)
+for g, h in {**heads, " long": longc}.items():
+    for t, label in ((timer, ""), (dtimer, " device")):
+        case(f"decode_attention{g}{label}",
+             lambda: cs.dense_decode_case(torch, t, gen, dtype=bf16,
+                                          timed=True, **{**dense, **h})["ms"])
+torch.cuda.empty_cache()
+gen.manual_seed(15)
 ffn = L.init_ffn(gen, 1024, 2816, bf16, "cuda")
 for M in (16, 256, 2048):
-    ms[f"fused_swiglu M={M}"] = cs.swiglu_case(
-        torch, timer, gen, ffn, M, bf16, timed=True)["ms"]
-ffn = L.init_ffn(gen, 4096, 12288, bf16, "cuda")
-ms["fused_swiglu qwen3-8b M=256"] = cs.swiglu_case(
-    torch, timer, gen, ffn, 256, bf16, timed=True)["ms"]
+    case(f"fused_swiglu M={M}",
+         lambda: cs.swiglu_case(torch, timer, gen, ffn, M, bf16,
+                                timed=True)["ms"])
+if only in "fused_swiglu qwen3-8b M=256":
+    gen.manual_seed(15)
+    ffn = L.init_ffn(gen, 4096, 12288, bf16, "cuda")
+    case("fused_swiglu qwen3-8b M=256",
+         lambda: cs.swiglu_case(torch, timer, gen, ffn, 256, bf16,
+                                timed=True)["ms"])
 print("TURN " + json.dumps(ms), flush=True)
-"""
+""".replace("HOST_AHEAD_CYCLES", str(HOST_AHEAD_CYCLES))
 
 
-def turns(other: Path) -> int:
-    """Phase 3's and 10's paged attention kernels (decode, and prefill at
-    every bucket), phase 14's chunked prefill buckets and phase 15's bf16
-    SwiGLU shapes, of the checkout at ``other`` and of this one, each turn
-    in a process of its own -- other, this, this, other, since the card's
-    clocks drift between timings; prints each turn's times (ms), then per
-    kernel and shape the two sides' means and this / other."""
+def turns(other: Path, only: str = "") -> int:
+    """Phase 3's and 10's paged attention kernels (decode at groups 1, 12
+    and 48, and prefill at every bucket), phase 14's chunked prefill buckets
+    and dense decode (the serve shape, groups 12 and 48, and the 32k cache)
+    and phase 15's bf16 SwiGLU shapes, of the checkout at ``other`` and of
+    this one, each turn in a process of its own -- other, this, this, other,
+    since the card's clocks drift between timings; the decode kernels both
+    as phase 3 times them and on the device alone.  ``only`` keeps the
+    cases whose name holds it.  Each case draws its inputs from a seed of
+    its own, and a case a checkout refuses is skipped on its side.  Prints
+    each turn's times (ms), then per kernel and shape both sides' times and
+    this / other."""
     sides = {"other": [], "this": []}
     for label, root in (("other", other), ("this", ROOT), ("this", ROOT),
                         ("other", other)):
-        res = subprocess.run([sys.executable, "-c", TURN_CODE], cwd=root,
-                             capture_output=True, text=True, timeout=900)
+        res = subprocess.run([sys.executable, "-c", TURN_CODE, only],
+                             cwd=root, capture_output=True, text=True,
+                             timeout=900)
         line = [ln for ln in res.stdout.splitlines() if ln.startswith("TURN ")]
         if res.returncode != 0 or not line:
             print(res.stdout + res.stderr, file=sys.stderr)
             return 1
+        for ln in res.stdout.splitlines():
+            if ln.startswith("skipped "):
+                log(f"  {label}: {ln}")
         log(f"TURN {label} {root}: {line[0][5:]}")
         sides[label].append(json.loads(line[0][5:]))
     for name in sides["this"][0]:
-        o = [t[name] for t in sides["other"]]
-        t = [t[name] for t in sides["this"]]
-        log(f"  {name}: other {' / '.join(f'{x:.4f}' for x in o)} this "
-            f"{' / '.join(f'{x:.4f}' for x in t)} ms; this / other "
-            f"{statistics.mean(t) / statistics.mean(o):.3f}")
+        t = [s[name] for s in sides["this"]]
+        o = [s[name] for s in sides["other"] if name in s]
+        ratio = (f"; this / other {statistics.mean(t) / statistics.mean(o):.3f}"
+                 if o else "; the other checkout refuses it")
+        log(f"  {name}: other {' / '.join(f'{x:.4f}' for x in o) or '-'} "
+            f"this {' / '.join(f'{x:.4f}' for x in t)} ms{ratio}")
     return 0
 
 
@@ -1762,7 +1998,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     if sys.argv[1:2] == ["--turns"]:
-        return turns(Path(sys.argv[2]).resolve())
+        return turns(Path(sys.argv[2]).resolve(), *sys.argv[3:4])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1859,6 +2095,11 @@ def main() -> int:
             + ", a nan_logits fault at the 2nd decode)")
         nan_guard_phase(torch, layout)
         torch.cuda.empty_cache()
+
+    log(f"== serve at granite-34b's widths ({GRANITE_LAYERS} layers, MQA: "
+        f"decode group 48)")
+    granite_serve_phase(torch)
+    torch.cuda.empty_cache()
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/paged_decode_attention.py:249",

@@ -3,132 +3,95 @@
 //
 // Replaces the TPU kernel `decode_attention`
 // (src/repro/kernels/decode_attention.py:88, pallas_call at :115): one query
-// token per sequence, q (B, Hq, hd), against the cache (B, S, Hkv, hd);
-// keys at positions >= kv_len are masked.  f32 online softmax with scale
-// 1/sqrt(hd); a row with no valid key stores 0.  No model path calls it (the
-// engine's dense rounds, C = 1 included, run chunked_prefill_attention, as
-// the reference's do); it is ported as the reference exposes it, through
-// ops.flash_decode_attention.
+// token per sequence, q (B, Hq, hd), against the cache (B, S, Hkv, hd); keys
+// at positions >= kv_len are masked.  f32 online softmax with scale
+// 1/sqrt(hd), any group; a row with no valid key stores 0.  No model path
+// calls it (the engine's dense rounds, C = 1 included, run
+// chunked_prefill_attention, as the reference's do); it is ported as the
+// reference exposes it, through ops.flash_decode_attention.
 //
-// Bound on an H100: bytes.  The function must read each sequence's live K
-// and V once, 2 * kv_len * Hkv * hd * sizeof(T) bytes, for about one FLOP
-// per byte.  Grid (Hkv, B), the paged decode kernel's: one CTA per
-// (sequence, kv head) holds the whole query group, as the TPU kernel puts the
-// group on the sublane axis, so each key row is read once per group, and
-// the tile loop stops at kv_len, so nothing past it is read.  Only the K/V
-// staging differs from the paged kernel (key `pos` at b * batch_stride + pos
-// * row_stride); on the same keys laid into pages it returns the paged
-// kernel's output bit for bit.  One CTA per (sequence, kv head) leaves a
-// small batch of long sequences with few CTAs on 132 SMs (B = 4, Hkv = 8:
-// 32); splitting the keys over CTAs and merging the partial softmaxes is
-// later work.
-#include "dense_attention_common.cuh"
+// Bound on an H100: bytes at small groups -- each sequence's live K and V
+// read once per kv head, 2 * kv_len * Hkv * hd * sizeof(T) bytes, for group
+// FLOPs per bf16 byte.  The body is the paged decode kernels'
+// (decode_splitk.cuh): keys split over CTAs of kSplitKeys (B = 4, Hkv = 8
+// over a 32k cache runs 2,048 CTAs), up to 16 query heads of a kv head in
+// one CTA (a larger group in several row blocks), K/V
+// streamed in their dtype through a cp.async ring, bf16 on mma.sync,
+// the splits merged in the same launch in a fixed order.  Only the
+// key-to-row function differs from the paged kernel (key `pos` at b *
+// batch_stride + pos * row_stride), and the split points depend only on the
+// key index, so on the same keys laid into pages it returns the paged
+// kernel's output bit for bit.
+#include "decode_splitk.cuh"
 
 namespace paged {
 
-constexpr int kDecodeGroup = 8;   // query heads per kv head one CTA holds
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) decode_kernel(
-    const T* __restrict__ q,              // (B, Hq, HD)
-    const T* __restrict__ k_cache,        // (B, S, Hkv, HD), strided
-    const T* __restrict__ v_cache,        // same strides as k_cache
-    const int* __restrict__ kv_lens,      // (B,)
-    T* __restrict__ out,                  // (B, Hq, HD)
-    int S, int n_q_heads, int n_kv_heads, long long batch_stride,
-    long long row_stride, float scale) {
-  __shared__ float qs[kDecodeGroup][HD];
-  __shared__ float ks[kTileK][HD + 1];    // +1: conflict-free column reads
-  __shared__ float vs[kTileK][HD];
-  __shared__ float p_s[kDecodeGroup][kTileK];
-  __shared__ float alpha_s[kDecodeGroup];
-  __shared__ float l_s[kDecodeGroup];
-
-  const int kv_head = blockIdx.x, b = blockIdx.y;
-  const int group = n_q_heads / n_kv_heads;
-  const int kv_len = min(__ldg(kv_lens + b), S);
-  const size_t head0 = (size_t)b * n_q_heads + (size_t)kv_head * group;
-  const DenseKV<T> kv =
-      dense_kv(k_cache, v_cache, b, kv_head, HD, batch_stride, row_stride);
-
-  load_q<T, HD, kDecodeGroup>(qs, scale, [&](int r) -> const T* {
-    return r < group ? q + (head0 + r) * HD : nullptr;
-  });
-
-  constexpr int kOwned = kDecodeGroup / kWarps;
-  constexpr int kAcc = kDecodeGroup / (kThreads / HD);
-  float m[kOwned], l[kOwned], acc[kAcc];
-#pragma unroll
-  for (int i = 0; i < kOwned; ++i) { m[i] = kNegInf; l[i] = 0.f; }
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-
-  for (int tile_start = 0; tile_start < kv_len; tile_start += kTileK) {
-    __syncthreads();                      // previous tile's p @ V is done
-    load_dense_kv_tile<T, HD>(ks, vs, kv, tile_start, kv_len);
-    __syncthreads();
-    attend_tile<HD, kDecodeGroup>(qs, ks, vs, p_s, alpha_s, m, l, acc,
-                                  [&](int r, int j) {
-                                    return r < group && tile_start + j < kv_len;
-                                  });
-  }
-  finish_rows<T, HD, kDecodeGroup>(l, l_s, acc, [&](int r) -> T* {
-    return r < group ? out + (head0 + r) * HD : nullptr;
-  });
-}
-
+// Sequence b's keys in a dense cache whose batch and key strides are
+// batch_stride and row_stride elements: key pos of kv head h at k_cache +
+// b * batch_stride + pos * row_stride + h * hd (and so in v_cache).  The
+// cache may be a strided view -- the engine's cache[:, :-1] drops each
+// slot's sink row -- and the kernel never asks for a copy.
 template <typename T>
-cudaError_t launch_decode_dense(const void* q, const void* k_cache,
-                                const void* v_cache, const int* kv_lens,
-                                void* out, int B, int S, int n_q_heads,
-                                int n_kv_heads, int hd, long long batch_stride,
-                                long long row_stride, float scale,
-                                cudaStream_t stream) {
-  const dim3 grid(n_kv_heads, B);
-#define DECODE_LAUNCH(HD)                                                   \
-  decode_kernel<T, HD><<<grid, kThreads, 0, stream>>>(                      \
-      static_cast<const T*>(q), static_cast<const T*>(k_cache),             \
-      static_cast<const T*>(v_cache), kv_lens, static_cast<T*>(out), S,     \
-      n_q_heads, n_kv_heads, batch_stride, row_stride, scale)
-  if (hd == 64) {
-    DECODE_LAUNCH(64);
-  } else if (hd == 128) {
-    DECODE_LAUNCH(128);
-  } else {
-    return cudaErrorInvalidValue;
+struct DenseCache {
+  const T* k_cache;
+  const T* v_cache;
+  const int* kv_lens;
+  long long batch_stride, row_stride;
+  int S, hd;
+
+  __device__ int kv_len(int b) const { return min(__ldg(kv_lens + b), S); }
+  __device__ const T* k(int b, int h) const {
+    return k_cache + (size_t)b * batch_stride + (size_t)h * hd;
   }
-#undef DECODE_LAUNCH
-  return cudaGetLastError();
-}
+  __device__ const T* v(int b, int h) const {
+    return v_cache + (size_t)b * batch_stride + (size_t)h * hd;
+  }
+  struct Rows {
+    size_t row_stride;
+    __device__ size_t operator()(int pos) const {
+      return (size_t)pos * row_stride;
+    }
+  };
+  __device__ Rows rows(int, int, int, int*) const {
+    return {(size_t)row_stride};
+  }
+};
 
 }  // namespace paged
 
 // C entry point, bound from Python with ctypes.  Strides are in elements;
-// the K and V caches share them.  Returns the launch's cudaError_t (0 =
-// launched).
+// the K and V caches share them.  `part` is the split partials' f32 scratch
+// and `tickets` a zeroed int32 buffer (both from the wrapper, sized for
+// `n_splits`).  Returns the launch's cudaError_t (0 = launched).
 extern "C" int decode_attention(const void* q, const void* k_cache,
                                 const void* v_cache, const void* kv_lens,
-                                void* out, int B, int S, int n_q_heads,
-                                int n_kv_heads, int hd,
+                                void* out, void* part, void* tickets, int B,
+                                int S, int n_q_heads, int n_kv_heads, int hd,
                                 long long batch_stride, long long row_stride,
-                                int dtype, float scale, void* stream) {
+                                int n_splits, int dtype, float scale,
+                                void* stream) {
   using namespace paged;
-  if (n_kv_heads <= 0 || n_q_heads % n_kv_heads != 0 ||
-      n_q_heads / n_kv_heads > kDecodeGroup) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (B == 0) return 0;
+  const dec::Args a{q, out, static_cast<float*>(part),
+                    static_cast<int*>(tickets), n_q_heads, 0, 0, n_splits,
+                    0.f};
   const int* lens = static_cast<const int*>(kv_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32:
-      return (int)launch_decode_dense<float>(
-          q, k_cache, v_cache, lens, out, B, S, n_q_heads, n_kv_heads, hd,
-          batch_stride, row_stride, scale, s);
-    case kBFloat16:
-      return (int)launch_decode_dense<__nv_bfloat16>(
-          q, k_cache, v_cache, lens, out, B, S, n_q_heads, n_kv_heads, hd,
-          batch_stride, row_stride, scale, s);
+    case kFloat32: {
+      const DenseCache<float> kv{static_cast<const float*>(k_cache),
+                                 static_cast<const float*>(v_cache), lens,
+                                 batch_stride, row_stride, S, hd};
+      return (int)dec::launch_decode_splitk<float>(a, kv, B, n_kv_heads, hd,
+                                                   S, scale, s);
+    }
+    case kBFloat16: {
+      const DenseCache<__nv_bfloat16> kv{
+          static_cast<const __nv_bfloat16*>(k_cache),
+          static_cast<const __nv_bfloat16*>(v_cache), lens, batch_stride,
+          row_stride, S, hd};
+      return (int)dec::launch_decode_splitk<__nv_bfloat16>(
+          a, kv, B, n_kv_heads, hd, S, scale, s);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,11 +1,11 @@
-// K/V staging for the dense-cache attention kernels on CUDA cores (flash
-// decode over a per-sequence cache (B, S, Hkv, HD), and the f32 chunked
-// prefill).  Everything after the staging -- the query load, the
-// online-softmax step over a tile and the normalisation -- is the paged
-// kernels' (paged_attention_common.cuh), so a dense kernel stages the same
-// f32 tile as the paged kernel does from the same keys laid into pages, and
-// returns its output bit for bit.  (The bf16 chunked prefill stages its keys
-// through prefill_wgmma.cuh, as the bf16 paged prefill does.)
+// K/V staging for the f32 chunked prefill over a dense per-sequence cache
+// (B, S, Hkv, HD), on CUDA cores.  Everything after the staging -- the
+// query load, the online-softmax step over a tile and the normalisation --
+// is the paged prefill kernels' (paged_attention_common.cuh), so the dense
+// kernel stages the same f32 tile as the paged kernel does from the same
+// keys laid into pages, and returns its output bit for bit.  (The bf16
+// chunked prefill stages its keys through prefill_wgmma.cuh, as the bf16
+// paged prefill does; the decode kernels run decode_splitk.cuh.)
 #pragma once
 
 #include "paged_attention_common.cuh"

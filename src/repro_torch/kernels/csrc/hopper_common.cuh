@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: the
 // warpgroup matrix multiply (wgmma) in its two operand forms, the shared
-// memory matrix descriptor of the 128-byte swizzled layout, 16-byte cp.async
-// copies, mbarriers and TMA tile loads.  Inline PTX, no library.
+// memory matrix descriptor of the 128-byte swizzled layout, the warp-level
+// mma.sync m16n8k16 with ldmatrix (the decode body's small tiles), 16-byte
+// cp.async copies, mbarriers and TMA tile loads.  Inline PTX, no library.
 //
 // Tiles live in shared memory in the 128-byte swizzled layout that TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 64 bf16 (128 bytes), eight rows
@@ -262,6 +263,40 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t desc_a,
   } else {
     mma_ss_n256<TRANS_B>(d, desc_a, desc_b, scale_d);
   }
+}
+
+// -- mma.sync and ldmatrix: warp-level tensor-core products --------------------
+// D(16 x 8, f32) += A(16 x 16) * B(16 x 8), bf16 in.  With g = lane / 4 and
+// t = lane % 4: a[0] holds A row g, columns 2t, 2t + 1; a[1] row g + 8; a[2]
+// and a[3] the same rows at columns + 8.  b[0] holds B rows 2t, 2t + 1 of
+// column g; b[1] rows + 8.  d[0], d[1] are D row g, columns 2t, 2t + 1;
+// d[2], d[3] row g + 8.
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i .. 8i + 7 give the
+// 16-byte row addresses of matrix i, which lands in r[i] (thread T: row
+// T / 4, elements 2 (T % 4), + 1; with .trans, element T / 4 of rows
+// 2 (T % 4) and 2 (T % 4) + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 // -- cp.async ------------------------------------------------------------------

@@ -1,12 +1,13 @@
-// Shared pieces of the paged-attention kernels (decode and chunked prefill,
-// split and fused KV layouts) on CUDA cores: K/V tile staging through the
-// block table, one online-softmax step over a staged tile, and the final
-// normalisation.  The four decode kernels (paged and dense, in both dtypes)
-// and the f32 prefill kernels run this body; the bf16 prefill kernels run
-// the tensor-core body of prefill_wgmma.cuh instead.  The layouts differ
-// only in where load_kv_tile reads a key's K and V (KVPool), so a fused
-// kernel on fuse_pages(k, v) stages the same f32 tile as the split kernel on
-// (k, v) and gives the same output bit for bit.
+// Shared pieces of the attention kernels: dtype codes and conversions, warp
+// reductions, the KV pool layouts (KVPool), and the f32 chunked-prefill body
+// on CUDA cores -- K/V tile staging through the block table, one
+// online-softmax step over a staged tile, and the final normalisation.  The
+// f32 prefill kernels (paged and dense) run this body; the bf16 prefill
+// kernels run the tensor-core body of prefill_wgmma.cuh and the decode
+// kernels the split-K body of decode_splitk.cuh.  The layouts differ only in
+// where load_kv_tile reads a key's K and V (KVPool), so a fused kernel on
+// fuse_pages(k, v) stages the same f32 tile as the split kernel on (k, v)
+// and gives the same output bit for bit.
 //
 // A CTA owns ROWS query rows that all read ONE kv head.  It walks the
 // sequence's keys kTileK at a time: the whole CTA stages the tile's K and V
@@ -14,8 +15,7 @@
 // itself) into shared memory as f32, each warp scores its rows against the
 // tile with lane j holding key j, and the (m, l, acc) online-softmax state
 // stays in registers.  Everything is f32 FMA on CUDA cores: exact enough to
-// match the plain PyTorch version in f32, and the decode kernels are bound
-// by the bytes of K/V, not by their few FLOPs per byte.
+// match the plain PyTorch version in f32 (TF32 would not be).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -8,11 +8,15 @@ hd)``; keys at positions ``>= kv_len`` are masked.  No model path calls it
 (the dense engine's decode rounds run ``chunked_prefill_attention`` with one
 query, as the reference's do); ``ops.flash_decode_attention`` exposes it.
 
-Bound on an H100: bytes -- each sequence's live K and V read once, about
-one FLOP per byte.  The kernel (``csrc/decode_attention.cu``) is the paged
-decode kernel with dense K/V staging: one CTA per (sequence, kv head)
-holding the whole query group, so a key row is read once per group and
-nothing past ``kv_len`` is read.
+Bound on an H100: bytes at small groups -- each sequence's live K and V
+read once per kv head, ``group`` FLOPs per bf16 byte.  The kernel
+(``csrc/decode_attention.cu``) runs the paged decode kernels' split-K body
+(``csrc/decode_splitk.cuh``) with a dense key-to-row function: the keys cut
+into splits of ``native.DECODE_SPLIT_KEYS`` over CTAs (B = 4 over a 32k
+cache fills the card), up to 16 query heads of a kv head in one CTA (any
+group: a larger one in several row blocks), the splits merged in the same launch in a fixed order through the
+wrapper's scratch and the stream's ticket buffer.  On the same keys laid
+into pages it returns the paged kernel's output bit for bit.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -29,10 +33,9 @@ from repro_torch.kernels.ref import (
     decode_attention_ref as decode_attention_plain,
 )
 
-MAX_GROUP = 8          # query heads per kv head one CTA holds (kDecodeGroup)
-
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-    ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [
+    ctypes.c_float, ctypes.c_void_p]
 
 
 def decode_attention(q, k_cache, v_cache, kv_lens):
@@ -44,8 +47,6 @@ def decode_attention(q, k_cache, v_cache, kv_lens):
     B, Hq, hd = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     native.check_attention_dims(q.dtype, Hq, Hkv, hd, dev)
-    if Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"query group {Hq // Hkv} > {MAX_GROUP}")
     native.check_cuda_tensor("q", q, q.dtype, 3, dev)
     batch_stride, row_stride = native.check_kv_cache(k_cache, v_cache,
                                                      q.dtype, B, hd, dev)
@@ -53,11 +54,14 @@ def decode_attention(q, k_cache, v_cache, kv_lens):
     if kv_lens.shape[0] != B:
         raise ValueError("kv_lens batch != q batch")
     out = torch.empty_like(q)
+    stream = native.stream_ptr(dev)
+    part, tickets, n_splits = native.decode_buffers(q, S, stream)
     fn = native.load("decode_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            kv_lens.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, hd,
-            batch_stride, row_stride, native.DTYPE_CODES[q.dtype],
-            1.0 / math.sqrt(hd), native.stream_ptr(dev))
+            kv_lens.data_ptr(), out.data_ptr(), native.data_ptr(part),
+            native.data_ptr(tickets), B, S, Hq, Hkv, hd, batch_stride,
+            row_stride, n_splits,
+            native.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd), stream)
     native.raise_on_error("decode_attention", rc)
     decode_attention.launches += 1
     return out

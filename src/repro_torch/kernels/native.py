@@ -37,8 +37,14 @@ NVCC_FLAGS = (
 )
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+# keys per split of the decode kernels: kSplitKeys in csrc/decode_splitk.cuh
+# (their C entry points refuse a split count made with another value)
+DECODE_SPLIT_KEYS = 512
 
 _fns: Dict[str, ctypes._CFuncPtr] = {}
+# the decode kernels' merge tickets, one zeroed int32 buffer per (device,
+# stream): every launch leaves the tickets it drew at 0
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
 # ptxas report (registers, shared memory, spills) of each kernel built by
 # this process, for chip_smoke.py to print
 build_logs: Dict[str, str] = {}
@@ -169,6 +175,43 @@ def check_attention_dims(dtype: torch.dtype, n_q_heads: int, n_kv_heads: int,
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def decode_buffers(q: torch.Tensor, capacity: int, stream: int):
+    """(scratch, tickets, n_splits) of one split-K decode launch of q ``(B,
+    Hq, hd)`` on ``stream`` over caches of ``capacity`` keys per sequence:
+    ``capacity`` is cut into ``n_splits`` splits of ``DECODE_SPLIT_KEYS``;
+    the f32 scratch holds each split's partial (acc, m, l) per query head,
+    and the tickets are the stream's zeroed int32 buffer, one per (sequence,
+    query head) at least.  With one split the kernel stores directly and
+    gets neither."""
+    B, Hq, hd = q.shape
+    n_splits = max(1, -(-capacity // DECODE_SPLIT_KEYS))
+    if n_splits == 1:
+        return None, None, 1
+    scratch = torch.empty(B * Hq * n_splits * (hd + 2), dtype=torch.float32,
+                          device=q.device)
+    return scratch, tickets(q.device, stream, B * Hq), n_splits
+
+
+def data_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """``t``'s device address, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The zeroed int32 ticket buffer of ``stream`` on ``device``, of at
+    least ``n`` elements (grown, zeroed anew, when a launch needs more).
+    Allocate it before capturing a CUDA graph: a capture must not allocate
+    it."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    key = (index, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 def raise_on_error(name: str, rc: int) -> None:

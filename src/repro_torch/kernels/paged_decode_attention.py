@@ -10,16 +10,22 @@ keys at positions ``>= kv_len`` are masked.  The split layout keeps two
 pools ``(n_pages, page_size, Hkv, hd)``; the fused layout one pool
 ``(n_pages, page_size, 2*Hkv, hd)`` with K of head h at 2h and V at 2h+1.
 
-Bound on an H100: bytes.  The function must read each sequence's live K and
-V once, ``2 * kv_len * Hkv * hd * 2`` bytes in bf16, for about one FLOP per
-byte.  The kernels (``csrc/paged_decode_attention.cu`` and
-``csrc/paged_decode_attention_fused.cu``, one body in
-``csrc/paged_decode_kernel.cuh``) therefore run one CTA per (sequence, kv
-head) holding the whole query group, so a K/V page is read once per group,
-with 16-byte coalesced loads of whole head rows and nothing read past
-``kv_len``; the dot products are plain f32 FMA.  The fused kernel
-reads each key's K and V as one contiguous run and otherwise computes what
-the split kernel computes, bit for bit.
+Bound on an H100: bytes at the main path's groups.  The function must read
+each sequence's live K and V once per kv head, ``2 * kv_len * Hkv * hd * 2``
+bytes in bf16, for ``group`` FLOPs per byte (up to 48 at granite-34b's MQA).
+The kernels (``csrc/paged_decode_attention.cu`` and
+``csrc/paged_decode_attention_fused.cu``, on the split-K decode body of
+``csrc/decode_splitk.cuh`` shared with ``decode_attention``) cut each
+sequence's keys into splits of ``native.DECODE_SPLIT_KEYS`` over CTAs,
+hold up to 16 query heads of a kv head in one CTA (any group: a larger one
+takes several row blocks, each reading the pages), stream K/V in their dtype through a ``cp.async``
+ring, run bf16 on ``mma.sync`` tensor cores (P split into bf16 hi + lo for
+P V) and f32 on f32 FMA, and merge the splits' partial softmaxes in the
+same launch, in a fixed order.  The wrapper provides
+the merge's f32 scratch and the stream's ticket buffer
+(``native.decode_buffers``): one launch per call, nothing allocated by the
+kernel.  The fused kernel reads each key's K and V as one contiguous run and
+otherwise computes what the split kernel computes, bit for bit.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.  The TPU kernel's ``pages_per_tile`` and
@@ -38,11 +44,9 @@ from repro_torch.kernels.ref import (
     paged_decode_attention_ref as paged_decode_attention_plain,
 )
 
-MAX_GROUP = 8          # query heads per kv head one CTA holds (kMaxGroup)
-
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
-_FUSED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+_FUSED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -57,8 +61,6 @@ def _check(q, pools, block_tables, kv_lens, heads_per_kv):
         raise ValueError(f"fused pool has an odd head count {H}")
     Hkv = H // heads_per_kv
     native.check_attention_dims(q.dtype, Hq, Hkv, hd, dev)
-    if Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"query group {Hq // Hkv} > {MAX_GROUP}")
     native.check_cuda_tensor("q", q, q.dtype, 3, dev)
     for name, t in pools.items():
         native.check_cuda_tensor(name, t, q.dtype, 4, dev)
@@ -80,13 +82,16 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens):
                                             kv_lens)
     B, Hq, Hkv, hd, ps = _check(
         q, {"k_pages": k_pages, "v_pages": v_pages}, block_tables, kv_lens, 1)
+    max_pages = block_tables.shape[1]
     out = torch.empty_like(q)
+    stream = native.stream_ptr(q.device)
+    part, tickets, n_splits = native.decode_buffers(q, max_pages * ps, stream)
     fn = native.load("paged_decode_attention", _ARGTYPES)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, hd, ps, block_tables.shape[1],
-            native.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
-            native.stream_ptr(q.device))
+            native.data_ptr(part), native.data_ptr(tickets), B, Hq, Hkv, hd,
+            ps, max_pages, n_splits, native.DTYPE_CODES[q.dtype],
+            1.0 / math.sqrt(hd), stream)
     native.raise_on_error("paged_decode_attention", rc)
     paged_decode_attention.launches += 1
     return out
@@ -104,12 +109,16 @@ def paged_decode_attention_fused(q, kv_pages, block_tables, kv_lens):
                                                   kv_lens)
     B, Hq, Hkv, hd, ps = _check(q, {"kv_pages": kv_pages}, block_tables,
                                 kv_lens, 2)
+    max_pages = block_tables.shape[1]
     out = torch.empty_like(q)
+    stream = native.stream_ptr(q.device)
+    part, tickets, n_splits = native.decode_buffers(q, max_pages * ps, stream)
     fn = native.load("paged_decode_attention_fused", _FUSED_ARGTYPES)
     rc = fn(q.data_ptr(), kv_pages.data_ptr(), block_tables.data_ptr(),
-            kv_lens.data_ptr(), out.data_ptr(), B, Hq, Hkv, hd, ps,
-            block_tables.shape[1], native.DTYPE_CODES[q.dtype],
-            1.0 / math.sqrt(hd), native.stream_ptr(q.device))
+            kv_lens.data_ptr(), out.data_ptr(), native.data_ptr(part),
+            native.data_ptr(tickets), B, Hq, Hkv, hd, ps, max_pages,
+            n_splits, native.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
+            stream)
     native.raise_on_error("paged_decode_attention_fused", rc)
     paged_decode_attention_fused.launches += 1
     return out

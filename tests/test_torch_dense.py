@@ -139,6 +139,8 @@ def test_chunked_prefill_plain_matches_jax(rng, dtype, B, Sq, Skv, Hq, Hkv,
         (4, 8, 2, 64, 512, 128),
         (2, 8, 1, 128, 256, 256),
         (3, 16, 4, 64, 384, 128),
+        (2, 24, 2, 128, 256, 128),   # group 12 (mistral-large-123b)
+        (2, 48, 1, 128, 256, 128),   # group 48 (granite-34b, MQA)
     ],
 )
 def test_decode_plain_matches_jax(rng, dtype, B, Hq, Hkv, hd, S, blk):

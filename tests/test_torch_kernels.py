@@ -70,10 +70,16 @@ SHAPES = [
     (3, 8, 4, 32, 16, 4),
     (4, 8, 2, 32, 8, 6),
 ]
+# and for decode groups 12 (mistral-large-123b's 96/8) and 48 (granite-34b's
+# MQA 48/1) at hd 128, which the decode kernels take like any other group
+DECODE_SHAPES = SHAPES + [
+    (2, 24, 2, 128, 16, 4),
+    (2, 48, 1, 128, 16, 3),
+]
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("B,Hq,Hkv,hd,page_size,max_pages", SHAPES)
+@pytest.mark.parametrize("B,Hq,Hkv,hd,page_size,max_pages", DECODE_SHAPES)
 def test_paged_decode_plain_matches_jax(rng, dtype, B, Hq, Hkv, hd, page_size,
                                         max_pages):
     jdt, tdt, tol = DTYPES[dtype]
