@@ -43,8 +43,15 @@ Phases, each of which raises (exit code != 0) on failure:
    bf16 and, through the INT8 pair, stays within half a quantization step
    (plus one bf16 rounding) per element.  Times each kernel, its plain
    version and ``index_select`` / ``index_copy_`` (``library_ms``; none
-   for the INT8 pair), and the host copies of one staged tensor; the bound
-   counts each distinct page once (the real ones and one sink).
+   for the INT8 pair), each kernel and library call also on the device
+   alone, each wrapper's host time per call, and the host copies of one
+   staged tensor; the bound counts each distinct page once (the real ones
+   and one sink).  Then two small f32 pools at the edges of the scatter's
+   and INT8 gather's designs (512 KiB pages; a head of 128 KiB) with ids
+   holding a run of equal real ids and a tail of sink ids: the same
+   bitwise checks, the repeated page left out of the comparison with the
+   plain scatters as the sink is, and the fp scatter's repeated pages
+   holding the last staged row of their run.
 5. serve: what ``python -m repro_torch.launch.serve --full`` runs -- 32
    ShareGPT-like requests through the pipelined engine with paged KV --
    with the kernels' launch counters zeroed after warm-up; every request
@@ -72,7 +79,8 @@ Phases, each of which raises (exit code != 0) on failure:
    BITWISE.  Timed like phase 3, and against the split kernel on the same
    inputs in turns (fused, split, split, fused).
 11. fused swap kernels: phase 4's bitwise cases on the fused serve pool
-   ``(24, 2049, 16, 32, 64)``, bucket 32, bf16.
+   ``(24, 2049, 16, 32, 64)``, bucket 32, bf16, timed as phase 4 times
+   them (64 KiB pages).
 12. serve, fused: ``--full --kv-layout fused`` (static budget, recompute):
    every request finishes, the fused prefill kernel runs 24 times per round
    with C > 1 and the fused decode kernel 24 times per pure-decode round,
@@ -146,11 +154,14 @@ numbers; the last line is ``{"ok": true, "device": {...}}``.
 times the kernels of phases 3 and 10 (paged decode at groups 1, 12 and 48,
 and paged prefill at every bucket, split and fused), 14 (chunked prefill at
 every bucket; dense decode at the serve shape, groups 12 and 48 and the 32k
-cache) and 15 (bf16 SwiGLU at every shape) of another checkout (say the
+cache), 15 (bf16 SwiGLU at every shape) and 4 and 11 (the four swap
+kernels at phase 4's timed case on the split and the fused pool, with each
+wrapper's host time per call) of another checkout (say the
 parent commit, unpacked with ``git archive``) and of this one in turns,
 other / this / this / other, each in a process of its own, through the
-other checkout's own ``chip_smoke.py`` functions; the decode kernels both
-as phase 3 times them and on the device alone.  Each case draws its inputs
+other checkout's own ``chip_smoke.py`` functions; the decode and swap
+kernels both as phases 3 and 4 time them and on the device alone.  Each
+case draws its inputs
 from a seed of its own; a case a checkout refuses (a decode group it does
 not take) is skipped on its side; FILTER keeps the cases whose name holds
 it.  Then prints, per kernel and shape, both sides' times and this / other.
@@ -571,20 +582,27 @@ def swap_ids(torch, gen, bucket, n_real, n_phys):
     return torch.cat([real, pad]).to(torch.int32)
 
 
-def check_scatter(torch, name, got, want, before, ids) -> float:
+def check_scatter(torch, name, got, want, before, ids, repeated=()) -> float:
     """``got`` (kernel) equals ``want`` (plain) on every page but the sink
-    (duplicate sink writes race by design), and every page outside ``ids``
-    and the sink is unchanged from ``before``.  Returns max |got - want|
-    over the non-sink pages."""
+    and the ``repeated`` ones (a plain scatter of repeated ids may leave
+    any of their rows on the card: the caller checks those pages, if at
+    all), and every page outside ``ids`` and the sink is unchanged from
+    ``before``.  Returns max |got - want| over the pages compared."""
     sink = before.shape[1] - 1
-    require(same_bits(got[:, :sink], want[:, :sink]),
+    if repeated:
+        pick = torch.tensor([p for p in range(sink) if p not in repeated],
+                            device="cuda")
+        got_c, want_c = got.index_select(1, pick), want.index_select(1, pick)
+    else:
+        got_c, want_c = got[:, :sink], want[:, :sink]
+    require(same_bits(got_c, want_c),
             f"{name}: kernel and plain version disagree on a non-sink page")
     keep = torch.ones(before.shape[1], dtype=torch.bool, device="cuda")
     keep[ids.long()] = False
     keep = keep.nonzero().flatten()
     require(same_bits(got.index_select(1, keep), before.index_select(1, keep)),
             f"{name}: a page outside the ids changed")
-    return max_abs_diff(got[:, :sink], want[:, :sink])
+    return max_abs_diff(got_c, want_c)
 
 
 def swap_case(torch, timer, gen, pages, bucket, n_real, timed):
@@ -679,6 +697,10 @@ def swap_case(torch, timer, gen, pages, bucket, n_real, timed):
         out[name].update({
             "ms": timer(fn), "plain_ms": timer(plain),
             "library_ms": timer(lib) if lib is not None else None,
+            "device_ms": timer.device(fn),
+            "library_device_ms": (timer.device(lib) if lib is not None
+                                  else None),
+            "host_us": host_us(torch, fn),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"pages {tuple(pages.shape)} {str(dtype)[6:]} ids "
                      f"{bucket} ({n_real} real, sink-padded)"})
@@ -689,6 +711,65 @@ def swap_case(torch, timer, gen, pages, bucket, n_real, timed):
         out["swap_scatter_pages_q8"]["max_abs_err"], e)
     del p_k, p_p
     return out
+
+
+# small f32 pools at the edges of the redesigned kernels: 512 KiB pages
+# (more chunks than the scatter's ring holds, 16 head blocks of the INT8
+# gather), and a head whose rows (128 KiB) exceed a stage of the INT8 gather
+# (its two-pass path)
+SWAP_EDGE_POOLS = ((2, 9, 16, 64, 128), (2, 9, 16, 2, 2048))
+
+
+def swap_edge_case(torch, gen, shape):
+    """Phase 4's bitwise checks on ``shape``, with ids that hold a run of
+    three equal real ids and a tail of three sink ids.  The gathers write
+    every row.  The scatters equal their plain versions on every page but
+    the sink and the repeated one, and change no page outside the ids; the
+    fp scatter leaves both holding the last staged row of their run (the
+    TPU kernel's sequential grid: last write wins).  Returns max |kernel -
+    plain| per kernel."""
+    from repro_torch.kernels import swap as sw
+
+    sink = shape[1] - 1
+    p = torch.randperm(sink, generator=gen, device="cuda").tolist()
+    ids = torch.tensor([p[0], p[1], p[1], p[1], p[2], sink, sink, sink],
+                       dtype=torch.int32, device="cuda")
+    dst = torch.tensor([p[3], p[4], p[4], p[4], p[5], sink, sink, sink],
+                       dtype=torch.int32, device="cuda")
+    pages = torch.randn(shape, generator=gen, device="cuda")
+    pages[:, p[0], :, 1] = 0                     # an all-zero head
+    err = {}
+    got = sw.swap_gather_pages(pages, ids)
+    want = sw.swap_gather_pages_plain(pages, ids)
+    require(same_bits(got, want),
+            f"swap_gather_pages disagrees with its plain version at {shape}")
+    err["swap_gather_pages"] = max_abs_diff(got, want)
+    staged = torch.randn(got.shape, generator=gen, device="cuda")
+    p_k = sw.swap_scatter_pages(pages.clone(), dst, staged)
+    p_p = sw.swap_scatter_pages_plain(pages.clone(), dst, staged)
+    err["swap_scatter_pages"] = check_scatter(
+        torch, f"swap_scatter_pages at {shape}", p_k, p_p, pages, dst,
+        repeated=(p[4],))
+    require(same_bits(p_k[:, p[4]], staged[:, 3])
+            and same_bits(p_k[:, sink], staged[:, 7]),
+            f"swap_scatter_pages at {shape}: a repeated id's page does not "
+            "hold the last staged row of its run")
+    qk, sk = sw.swap_gather_pages_q8(pages, ids)
+    qp, sp = sw.swap_gather_pages_q8_plain(pages, ids)
+    require(same_bits(qk, qp) and same_bits(sk, sp),
+            f"swap_gather_pages_q8 at {shape}: codes or scales disagree")
+    require(bool((sk[:, 0, :, 1] == 0).all()),
+            f"swap_gather_pages_q8 at {shape}: an all-zero head has a scale "
+            "!= 0")
+    err["swap_gather_pages_q8"] = max(max_abs_diff(qk, qp),
+                                      max_abs_diff(sk, sp))
+    p_k = sw.swap_scatter_pages_q8(pages.clone(), dst, qp, sp)
+    p_p = sw.swap_scatter_pages_q8_plain(pages.clone(), dst, qp, sp)
+    err["swap_scatter_pages_q8"] = check_scatter(
+        torch, f"swap_scatter_pages_q8 at {shape}", p_k, p_p, pages, dst,
+        repeated=(p[4],))
+    torch.cuda.synchronize()
+    return err
 
 
 def round_trip(torch, timer, gen, pages, bucket, n_real):
@@ -765,15 +846,49 @@ def swap_kernel_phase(torch):
                 f"H2D {t['h2d_q8_ms']:.4f} ms")
         del pages
         torch.cuda.empty_cache()
+    for shape in SWAP_EDGE_POOLS:
+        e = swap_edge_case(torch, gen, shape)
+        log(f"  swap kernels float32 {shape}, ids with a run of 3 equal real "
+            "ids and 3 sink ids: bitwise equal to the plain versions, pages "
+            "outside the ids unchanged, the last of each run written; max "
+            f"|kernel - plain| {max(e.values()):.3e}")
+        for name, v in e.items():
+            worst[name] = max(worst[name], v)
     # the kernels line reports the timed case and the worst error over
     # every case
     for name, r in results.items():
         r["max_abs_err"] = worst[name]
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        log(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms plain "
-            f"{r['plain_ms']:.4f} ms library {lib} bound {r['bound_ms']:.4f} "
-            f"ms ({r['bound_by']}) max |kernel - plain| {r['max_abs_err']:.3e}")
+        log_swap_times(name, r)
+    log(swap_yardsticks(torch, timer, SWAP_POOL, 20))
     return results
+
+
+def swap_yardsticks(torch, timer, pool, n_pages) -> str:
+    """The device-only timer's yardsticks at a swap case on a bf16 pool of
+    shape ``pool``: a launch that does nothing, and ``copy_`` of ``n_pages``
+    pages of every layer (the bytes a scatter of that many distinct pages
+    must read and write)."""
+    src = torch.empty((pool[0], n_pages) + tuple(pool[2:]),
+                      dtype=torch.bfloat16, device="cuda")
+    dst = torch.empty_like(src)
+    empty = timer.device(lambda: torch.cuda._sleep(1))
+    copy = timer.device(lambda: dst.copy_(src))
+    return (f"  yardsticks on the device alone: an empty launch {empty:.4f} "
+            f"ms; copy_ of {n_pages} pages a layer "
+            f"({2 * src.numel() * src.element_size()} B moved) {copy:.4f} ms")
+
+
+def log_swap_times(name, r) -> None:
+    """One line of a timed swap case: the phase's timer, the device alone
+    and the wrapper's host time per call."""
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    lib_dev = ("none" if r["library_device_ms"] is None
+               else f"{r['library_device_ms']:.4f} ms")
+    log(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms plain "
+        f"{r['plain_ms']:.4f} ms library {lib} bound {r['bound_ms']:.4f} "
+        f"ms ({r['bound_by']}) max |kernel - plain| {r['max_abs_err']:.3e}; "
+        f"device only: kernel {r['device_ms']:.4f} ms, library {lib_dev}; "
+        f"kernel host time {r['host_us']:.1f} us per call")
 
 
 # -- phase 5: the serving main path --------------------------------------------
@@ -1044,12 +1159,16 @@ def fused_swap_kernel_phase(torch):
     gen = torch.Generator(device="cuda").manual_seed(11)
     pages = torch.randn(FUSED_SWAP_POOL, generator=gen,
                         device="cuda").to(torch.bfloat16)
-    r = swap_case(torch, None, gen, pages, 32, 19, timed=False)
+    timer = Timer(torch)
+    r = swap_case(torch, timer, gen, pages, 32, 19, timed=True)
     log(f"  swap kernels on the fused pool {FUSED_SWAP_POOL} bf16 bucket 32 "
         "(19 real): bitwise equal to the plain versions, pages outside the "
         "ids unchanged; max |kernel - plain| "
         f"{max(v['max_abs_err'] for v in r.values()):.3e}")
+    for name, v in r.items():
+        log_swap_times(name, v)
     del pages
+    log(swap_yardsticks(torch, timer, FUSED_SWAP_POOL, 20))
     torch.cuda.empty_cache()
 
 
@@ -1945,6 +2064,35 @@ if only in "fused_swiglu qwen3-8b M=256":
     case("fused_swiglu qwen3-8b M=256",
          lambda: cs.swiglu_case(torch, timer, gen, ffn, 256, bf16,
                                 timed=True)["ms"])
+# the four swap kernels at phase 4's timed case (bf16, bucket 32, 19 real
+# ids) on the split and the fused serve pool, through the wrappers
+from repro_torch.kernels import swap as sw
+for lay, pool in (("split", cs.SWAP_POOL), ("fused", cs.FUSED_SWAP_POOL)):
+    names = [f"{k} {lay}{x}" for k in cs.SWAP_KERNELS
+             for x in ("", " device", " host us")]
+    if not any(only in n for n in names):
+        continue
+    gen.manual_seed(zlib.crc32(f"swap {lay}".encode()))
+    pages = torch.randn(pool, generator=gen, device="cuda").to(bf16)
+    ids = cs.swap_ids(torch, gen, 32, 19, pool[1])
+    dst = cs.swap_ids(torch, gen, 32, 19, pool[1])
+    staged = torch.randn((pool[0], 32) + tuple(pool[2:]), generator=gen,
+                         device="cuda").to(bf16)
+    q, s = sw.swap_gather_pages_q8_plain(pages, ids)
+    target = pages.clone()
+    fns = {"swap_gather_pages": lambda: sw.swap_gather_pages(pages, ids),
+           "swap_scatter_pages":
+               lambda: sw.swap_scatter_pages(target, dst, staged),
+           "swap_gather_pages_q8": lambda: sw.swap_gather_pages_q8(pages, ids),
+           "swap_scatter_pages_q8":
+               lambda: sw.swap_scatter_pages_q8(target, dst, q, s)}
+    for k, fn in fns.items():
+        for label, t in (("", timer), (" device", dtimer),
+                         (" host us", lambda f: cs.host_us(torch, f))):
+            if only in f"{k} {lay}{label}":
+                ms[f"{k} {lay}{label}"] = t(fn)
+    del pages, target, staged, q, s
+    torch.cuda.empty_cache()
 print("TURN " + json.dumps(ms), flush=True)
 """.replace("HOST_AHEAD_CYCLES", str(HOST_AHEAD_CYCLES))
 
@@ -1952,15 +2100,17 @@ print("TURN " + json.dumps(ms), flush=True)
 def turns(other: Path, only: str = "") -> int:
     """Phase 3's and 10's paged attention kernels (decode at groups 1, 12
     and 48, and prefill at every bucket), phase 14's chunked prefill buckets
-    and dense decode (the serve shape, groups 12 and 48, and the 32k cache)
-    and phase 15's bf16 SwiGLU shapes, of the checkout at ``other`` and of
-    this one, each turn in a process of its own -- other, this, this, other,
-    since the card's clocks drift between timings; the decode kernels both
-    as phase 3 times them and on the device alone.  ``only`` keeps the
+    and dense decode (the serve shape, groups 12 and 48, and the 32k cache),
+    phase 15's bf16 SwiGLU shapes and the four swap kernels at phase 4's
+    timed case on the split and fused pools, of the checkout at ``other``
+    and of this one, each turn in a process of its own -- other, this,
+    this, other, since the card's clocks drift between timings; the decode
+    and swap kernels both as phases 3 and 4 time them and on the device
+    alone, and the swap wrappers' host time per call.  ``only`` keeps the
     cases whose name holds it.  Each case draws its inputs from a seed of
     its own, and a case a checkout refuses is skipped on its side.  Prints
-    each turn's times (ms), then per kernel and shape both sides' times and
-    this / other."""
+    each turn's times (ms; host time in us), then per kernel and shape both
+    sides' times and this / other."""
     sides = {"other": [], "this": []}
     for label, root in (("other", other), ("this", ROOT), ("this", ROOT),
                         ("other", other)):
@@ -1981,8 +2131,9 @@ def turns(other: Path, only: str = "") -> int:
         o = [s[name] for s in sides["other"] if name in s]
         ratio = (f"; this / other {statistics.mean(t) / statistics.mean(o):.3f}"
                  if o else "; the other checkout refuses it")
+        unit = "us" if name.endswith(" host us") else "ms"
         log(f"  {name}: other {' / '.join(f'{x:.4f}' for x in o) or '-'} "
-            f"this {' / '.join(f'{x:.4f}' for x in t)} ms{ratio}")
+            f"this {' / '.join(f'{x:.4f}' for x in t)} {unit}{ratio}")
     return 0
 
 

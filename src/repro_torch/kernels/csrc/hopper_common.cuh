@@ -2,7 +2,8 @@
 // warpgroup matrix multiply (wgmma) in its two operand forms, the shared
 // memory matrix descriptor of the 128-byte swizzled layout, the warp-level
 // mma.sync m16n8k16 with ldmatrix (the decode body's small tiles), 16-byte
-// cp.async copies, mbarriers and TMA tile loads.  Inline PTX, no library.
+// cp.async copies, mbarriers, TMA tile loads and 1-D bulk copies, and the
+// grid of a persistent kernel.  Inline PTX, no library.
 //
 // Tiles live in shared memory in the 128-byte swizzled layout that TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 64 bf16 (128 bytes), eight rows
@@ -364,7 +365,74 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// -- 1-D bulk copies (no tensor map) -------------------------------------------
+// `bytes` contiguous bytes global -> shared, completing on `bar` (which the
+// issuing thread armed with mbar_expect_tx).  Both addresses 16-byte
+// aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// `bytes` shared -> global, in the issuing thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::
+                   "l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until at most N of the issuing thread's bulk groups still read their
+// shared source (`.read`: the writes to global may still be in flight).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Until at most N of them are pending at all.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // -- host ---------------------------------------------------------------------
+// The grid of a persistent kernel: as many CTAs as fit on every SM at once
+// (at most max_per_sm each), with the largest shared-memory carveout, and
+// no more than n_items.  Also allows the kernel `smem` bytes of dynamic
+// shared memory.
+template <typename Kernel>
+inline cudaError_t persistent_grid(Kernel kernel, int threads, int smem,
+                                   int max_per_sm, long long n_items,
+                                   int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long ctas =
+      (long long)sms * (per_sm < max_per_sm ? per_sm : max_per_sm);
+  *grid = (int)(n_items < ctas ? n_items : ctas);
+  return cudaSuccess;
+}
+
 // Allow `kernel` `bytes` of dynamic shared memory.  Called before every
 // launch: set once per process, the limit was seen not to hold for a later
 // launch (refused with cudaErrorInvalidValue) in a process that had loaded

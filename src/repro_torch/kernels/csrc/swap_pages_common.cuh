@@ -1,15 +1,17 @@
 // Shared pieces of the four KV swap kernels (gather, scatter and their INT8
 // variants): dtypes, conversions and the per-head INT8 math.
 //
-// Every kernel runs one CTA per (page, layer), grid (n, L).  The page pool is
-// (L, n_phys, page_size, H, hd) and the staging tensor (L, n, page_size, H,
-// hd), both contiguous, so one page is page_size * H * hd contiguous
-// elements.  A CTA reads its own page id from `ids` (what the TPU kernels got
-// by scalar prefetch) and walks the page in 16-byte vectors, thread t on
-// vectors t, t + kThreads, ...: neighbouring threads on neighbouring
-// addresses.  The wrappers require `hd * sizeof(T)` to be a multiple of 16,
-// so a vector never straddles two heads: vector v of a page belongs to head
-// (v / (hd / kVec)) % H.
+// The page pool is (L, n_phys, page_size, H, hd) and the staging tensor (L,
+// n, page_size, H, hd), both contiguous, so one page is page_size * H * hd
+// contiguous elements.  The gather and the INT8 scatter run one CTA of
+// kThreads per (page, layer), grid (n, L): a CTA reads its own page id from
+// `ids` (what the TPU kernels got by scalar prefetch) and walks the page in
+// 16-byte vectors, thread t on vectors t, t + kThreads, ...: neighbouring
+// threads on neighbouring addresses.  The scatter and the INT8 gather run
+// persistent CTAs that stage pages in shared memory by bulk copies (see
+// their files).  The wrappers require `hd * sizeof(T)` to be a multiple of
+// 16, so a vector never straddles two heads: vector v of a page belongs to
+// head (v / (hd / kVec)) % H.
 //
 // The ids are trusted: every id must lie in [0, n_phys).  The engine builds
 // them from the pool's block tables and pads with the sink page.
@@ -42,11 +44,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 template <typename T>
 using CodeWord = typename std::conditional<sizeof(T) == 2, uint2, uint32_t>::type;
 
-// Symmetric INT8 code of x at step `safe` (> 0): round half to even (rintf,
-// as torch.round), then clip to +-127.  IEEE division, as the plain version.
+// Symmetric INT8 code of x at step `safe` (> 0): x / safe by IEEE division,
+// as the plain version, rounded half to even (as torch.round) and clipped
+// to +-127.  The clip comes first and the conversion rounds (F2I, to nearest
+// even): the same code, since the bounds are integers and rounding is
+// monotone, and a NaN quotient clips to -127 either way (fmaxf drops it);
+// one instruction fewer than rintf, clip, convert.
 __device__ __forceinline__ int8_t quantize(float x, float safe) {
-  const float r = rintf(x / safe);
-  return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(r, -127.f), 127.f)));
+  return static_cast<int8_t>(
+      __float2int_rn(fminf(fmaxf(x / safe, -127.f), 127.f)));
 }
 
 }  // namespace swap

@@ -1,0 +1,479 @@
+"""The index math of the two redesigned swap kernels, modelled on the CPU.
+
+``csrc/swap_scatter_pages.cu`` walks (layer, item, chunk) work items over
+persistent CTAs, one elected thread moving each chunk of a page through a
+ring of shared-memory stages by bulk copies, and writes nothing for an id
+that the next id repeats.  ``csrc/swap_gather_pages_q8.cu`` walks (layer,
+page, head block) items, loads each into a ring stage once, takes every
+head's absmax from shared memory (a warp per head, a shuffle reduction) and
+its codes from the same tile, 16 (or 8, or 4) a store.  This file models
+both walks in numpy with the constants read from the sources -- the ring's
+stages and their mbarrier phases, the refill rule, the chunking of large
+pages, the head blocks, the repeated-id rule -- and holds the models against
+the plain versions (``repro_torch.kernels.swap``, bitwise) and against
+``repro.kernels.swap`` run as tests/test_torch_swap.py runs it (its jnp path
+and its Pallas kernels in interpret mode): the scatter bitwise; scales
+within rtol 1e-6 (XLA may divide by 127 as a multiply by the reciprocal, an
+ulp away), and INT8 codes exactly wherever the two scales agree bitwise and
+within one step where they do not.  Each model asserts that every (layer,
+page) of its output is covered once and that each stage holds the item it
+is read as.
+
+The CUDA kernels themselves need nvcc and a card; ``chip_smoke.py`` phase 4
+holds them bitwise against the plain versions on the GPU.
+"""
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import swap as jswap
+from repro_torch.kernels import native
+from repro_torch.kernels import swap as tswap
+
+CSRC = Path(native.__file__).resolve().parent / "csrc"
+SCATTER_SRC = (CSRC / "swap_scatter_pages.cu").read_text()
+GATHER_Q8_SRC = (CSRC / "swap_gather_pages_q8.cu").read_text()
+
+
+def _constant(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+CHUNK_BYTES = _constant(SCATTER_SRC, "kChunkBytes")
+SCATTER_STAGES = _constant(SCATTER_SRC, "kStages")
+SCATTER_CTAS_PER_SM = _constant(SCATTER_SRC, "kCtasPerSm")
+Q8_THREADS = _constant(GATHER_Q8_SRC, "kQ8Threads")
+STAGE_BYTES = _constant(GATHER_Q8_SRC, "kStageBytes")
+Q8_STAGES = _constant(GATHER_Q8_SRC, "kStages")
+MAX_STAGE_BYTES = _constant(GATHER_Q8_SRC, "kMaxStageBytes")
+Q8_CTAS_PER_SM = _constant(GATHER_Q8_SRC, "kCtasPerSm")
+MAX_SMEM_PER_CTA = 232448        # an H100 CTA's shared memory limit
+SMEM_PER_SM = 233472             # an H100 SM's shared memory
+H100_SMS = 132
+# CTAs of the persistent grid: one, a few, and as many as an H100 runs at
+# once (kCtasPerSm on each SM; fewer where the items run out)
+GRIDS = {"1cta": lambda n_items, per_sm: 1,
+         "5ctas": lambda n_items, per_sm: min(n_items, 5),
+         "h100": lambda n_items, per_sm: min(n_items, H100_SMS * per_sm)}
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+N_PHYS = 9                       # page 8 is the sink
+# a run of three equal real ids and a tail of three sink ids (the engine's
+# padding)
+IDS = np.array([7, 2, 2, 2, 5, 8, 8, 8], np.int32)
+LAST_OF_RUN = {7: 0, 2: 3, 5: 4, 8: 7}    # page -> the item that must win
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _values(rng, shape, dtype):
+    """numpy f32 values exactly representable in ``dtype``, and the same
+    values as a torch CPU tensor of ``dtype``."""
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 3.0)
+    t = x.to(DTYPES[dtype][0])
+    return t.float().numpy(), t
+
+
+def _bytes(t):
+    """A contiguous torch tensor's bytes as a numpy uint8 array, one row per
+    (layer, page)."""
+    L, n = t.shape[:2]
+    return t.contiguous().view(torch.uint8).numpy().reshape(L, n, -1).copy()
+
+
+# -- the scatter's walk ------------------------------------------------------------
+def scatter_model(pool, ids, staged, grid):
+    """``csrc/swap_scatter_pages.cu`` on ``pool`` (uint8, (L, n_phys,
+    page_bytes), updated in place) from ``staged`` (uint8, (L, n,
+    page_bytes)) with the grid ``grid(n_items, kCtasPerSm)``: every CTA's
+    elected thread, one after the other (distinct written items touch
+    distinct bytes).  Returns the (layer, page, offset) of every chunk
+    written."""
+    L, n_phys, page_bytes = pool.shape
+    n = len(ids)
+    n_chunks = -(-page_bytes // CHUNK_BYTES)
+    n_items = L * n * n_chunks
+    grid = grid(n_items, SCATTER_CTAS_PER_SM)
+    S = SCATTER_STAGES
+
+    def writes(w):
+        i = (w // n_chunks) % n
+        return i + 1 == n or ids[i + 1] != ids[i]
+
+    def next_item(w):
+        while w < n_items and not writes(w):
+            w += grid
+        return w
+
+    def chunk_of(w):
+        page, c = divmod(w, n_chunks)
+        l, i = divmod(page, n)
+        off = c * CHUNK_BYTES
+        return l, i, int(ids[i]), off, min(CHUNK_BYTES, page_bytes - off)
+
+    written = []
+    for b in range(grid):
+        ring = np.zeros((S, CHUNK_BYTES), np.uint8)
+        held, landed = [None] * S, [0] * S   # item in a stage, phases done
+        reading = []                         # stages a store may still read
+
+        def load(w, s):
+            assert s not in reading, "refilled a stage a store still reads"
+            l, i, _, off, nb = chunk_of(w)
+            assert 0 < nb <= CHUNK_BYTES and nb % 16 == 0
+            ring[s, :nb] = staged[l, i, off:off + nb]
+            held[s] = w
+            landed[s] += 1
+
+        w_load = next_item(b)
+        w_store, k_load = w_load, 0
+        while k_load < S - 1 and w_load < n_items:
+            load(w_load, k_load)
+            k_load += 1
+            w_load = next_item(w_load + grid)
+        k = 0
+        while w_store < n_items:
+            s = k % S
+            # mbar_wait(parity (k / S) & 1): the stage's (k / S)-th load
+            # has landed, and it holds this item
+            assert landed[s] == k // S + 1 and held[s] == w_store
+            l, _, pid, off, nb = chunk_of(w_store)
+            pool[l, pid, off:off + nb] = ring[s, :nb]
+            written.append((l, pid, off))
+            reading.append(s)                # bulk_store + commit
+            w_store = next_item(w_store + grid)
+            if w_load < n_items:
+                reading = reading[-1:]       # wait_group.read 1
+                load(w_load, k_load % S)
+                k_load += 1
+                w_load = next_item(w_load + grid)
+            k += 1
+    return written
+
+
+SCATTER_SHAPES = {
+    # (page_size, H, hd): bf16 / f32 page bytes, against 8 KiB chunks
+    "H1": (16, 1, 16),        # 512 B / 1 KiB: smaller than a chunk
+    "H2": (16, 2, 16),        # 1 / 2 KiB
+    "H16": (16, 16, 16),      # 8 KiB (one chunk) / 16 KiB (two)
+    "H32": (16, 32, 64),      # 64 KiB (the fused serve pool) / 128 KiB
+}
+
+
+def _scatter_case(rng, shape, dtype, grid):
+    ps, H, hd = shape
+    pages_np, pages = _values(rng, (2, N_PHYS, ps, H, hd), dtype)
+    staged_np, staged = _values(rng, (2, len(IDS), ps, H, hd), dtype)
+    pool = _bytes(pages)
+    written = scatter_model(pool, IDS, _bytes(staged), GRIDS[grid])
+    got = torch.from_numpy(pool.reshape(-1)).view(pages.dtype).reshape(
+        pages.shape)
+    return pages, staged, got, written
+
+
+def _check_scatter_walk(pages, written, page_bytes):
+    """Only the last id of each run writes, each of its chunks exactly once;
+    the bytes moved are the bound's (each distinct target page once)."""
+    L = pages.shape[0]
+    want = {(l, p, c * CHUNK_BYTES) for l in range(L) for p in set(IDS.tolist())
+            for c in range(-(-page_bytes // CHUNK_BYTES))}
+    assert len(written) == len(set(written)) and set(written) == want
+
+
+@pytest.mark.parametrize("grid", ["1cta", "h100"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", sorted(SCATTER_SHAPES))
+def test_scatter_model_matches_plain_and_jax(rng, shape, dtype, grid):
+    pages, staged, got, written = _scatter_case(
+        rng, SCATTER_SHAPES[shape], dtype, grid)
+    page_bytes = pages[0, 0].numel() * pages.element_size()
+    _check_scatter_walk(pages, written, page_bytes)
+    # the last staged row of each run in its page, nothing outside the ids
+    for page, item in LAST_OF_RUN.items():
+        assert torch.equal(got[:, page].view(torch.uint8),
+                           staged[:, item].view(torch.uint8))
+    outside = [p for p in range(N_PHYS) if p not in LAST_OF_RUN]
+    assert torch.equal(got[:, outside].view(torch.uint8),
+                       pages[:, outside].view(torch.uint8))
+    # the plain version on every page written once by it (a plain scatter of
+    # repeated ids may leave any of their rows)
+    plain = tswap.swap_scatter_pages(pages.clone(), torch.from_numpy(IDS),
+                                     staged)
+    once = [p for p in range(N_PHYS) if (IDS == p).sum() <= 1]
+    assert torch.equal(got[:, once].view(torch.uint8),
+                       plain[:, once].view(torch.uint8))
+    # the JAX package, both paths: the whole pool, bitwise (its sequential
+    # grid leaves the last of each run, and so does XLA's scatter here)
+    jdt = DTYPES[dtype][1]
+    jp = jnp.asarray(pages.float().numpy(), jdt)
+    js = jnp.asarray(staged.float().numpy(), jdt)
+    for use_pallas in (False, True):
+        want = jswap.swap_scatter_pages(jnp.array(jp), jnp.asarray(IDS), js,
+                                        use_pallas=use_pallas, interpret=True)
+        np.testing.assert_array_equal(
+            got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("shape", [(16, 64, 128), (16, 2, 2048)],
+                         ids=["512KiB", "tall_head"])
+def test_scatter_model_chunks_large_pages(rng, shape, grid):
+    """f32 pages of 512 KiB and 256 KiB (more chunks than stages): every
+    chunk of every written page once, the last of each run, pages outside
+    untouched."""
+    pages, staged, got, written = _scatter_case(rng, shape, "float32", grid)
+    page_bytes = pages[0, 0].numel() * 4
+    assert page_bytes // CHUNK_BYTES > SCATTER_STAGES
+    _check_scatter_walk(pages, written, page_bytes)
+    for page, item in LAST_OF_RUN.items():
+        assert torch.equal(got[:, page], staged[:, item])
+    outside = [p for p in range(N_PHYS) if p not in LAST_OF_RUN]
+    assert torch.equal(got[:, outside], pages[:, outside])
+
+
+def test_scatter_model_skips_repeated_ids_only():
+    """Adjacent equal ids: only the last of the run writes.  Equal ids that
+    are not neighbours both write (in no set order on the card)."""
+    pool = np.zeros((1, 4, 16), np.uint8)
+    staged = np.arange(6 * 16, dtype=np.uint8).reshape(1, 6, 16)
+    ids = np.array([1, 1, 2, 1, 3, 3], np.int32)
+    written = scatter_model(pool, ids, staged, GRIDS["1cta"])
+    assert sorted(written) == [(0, 1, 0), (0, 1, 0), (0, 2, 0), (0, 3, 0)]
+    assert (pool[0, 3] == staged[0, 5]).all() and (pool[0, 2] == staged[0, 2]).all()
+
+
+# -- the INT8 gather's walk ------------------------------------------------------
+def q8_plan(ps, H, hd, esz):
+    """What ``launch`` in csrc/swap_gather_pages_q8.cu picks: None for the
+    two-pass kernel (a head's rows over kMaxStageBytes), else the head
+    block, the stage's bytes and the codes per store."""
+    col = ps * hd * esz
+    if col == 0 or col > MAX_STAGE_BYTES:
+        return None
+    h_blk = min(H, max(1, STAGE_BYTES // col))
+    return dict(h_blk=h_blk, n_hblk=-(-H // h_blk), stage=h_blk * col,
+                codes=16 if hd % 16 == 0 else 16 // esz)
+
+
+def walk(lane, per_row, rows):
+    """The cells (row, column) that ``Walk`` gives ``lane``: cell lane, lane
+    + 32, ... of ``per_row`` cells a row, stepped as the kernel steps it."""
+    r, c = divmod(lane, per_row)
+    dr, dc = divmod(32, per_row)
+    cells = []
+    while r < rows:
+        cells.append((r, c))
+        c += dc
+        r += dr
+        if c >= per_row:
+            c -= per_row
+            r += 1
+    return cells
+
+
+def gather_q8_model(pages, ids, esz, grid):
+    """``csrc/swap_gather_pages_q8.cu`` on ``pages`` (f32 numpy, the values
+    of the pool's dtype) with the grid ``grid(n_items, kCtasPerSm)``: every
+    CTA's walk over its items, its ring (kStages - 1 loads ahead, each
+    issued as the item before it lands, into the stage the previous item
+    left), and a warp per head with its lanes on the cells of ``walk``.
+    Returns (q, scales) and asserts that every code and scale is written
+    exactly once, that each stage holds the item it is read as and is not
+    refilled while read, that each (layer, page, head block) is loaded once,
+    and that each store is aligned."""
+    L, n_phys, ps, H, hd = pages.shape
+    n = len(ids)
+    plan = q8_plan(ps, H, hd, esz)
+    h_blk, n_hblk, codes = plan["h_blk"], plan["n_hblk"], plan["codes"]
+    n_items = L * n * n_hblk
+    grid = grid(n_items, Q8_CTAS_PER_SM)
+    S, kvec = Q8_STAGES, 16 // esz
+    page_elems = ps * H * hd
+    q = np.zeros(L * n * page_elems, np.int8)
+    q_writes = np.zeros(q.size, np.int64)
+    scales = np.zeros(L * n * H, np.float32)
+    s_writes = np.zeros(scales.size, np.int64)
+    loaded = np.zeros(n_items, np.int64)
+    lanes = np.arange(32)
+    vec_cells = [walk(lane, hd // kvec, ps) for lane in range(32)]
+    group_cells = np.array([rc for lane in range(32)
+                            for rc in walk(lane, hd // codes, ps)])
+
+    def item_of(w):
+        page, hb = divmod(w, n_hblk)
+        h0 = hb * h_blk
+        return page, page % n, h0, min(h_blk, H - h0)
+
+    for b in range(grid):
+        ring, held, landed = [None] * S, [None] * S, [0] * S
+        reading = None                     # the stage being quantized
+
+        def load(w, s):
+            assert s != reading, "refilled the stage being read"
+            page, i, h0, nh = item_of(w)
+            rows = pages[page // n, ids[i], :, h0:h0 + nh, :]   # ps row copies
+            assert rows.size * esz <= plan["stage"]
+            ring[s] = rows.reshape(-1).copy()
+            held[s] = w
+            landed[s] += 1
+            loaded[w] += 1
+
+        for s in range(S - 1):
+            if b + s * grid < n_items:
+                load(b + s * grid, s)
+        for k, w in enumerate(range(b, n_items, grid)):
+            s = k % S
+            assert landed[s] == k // S + 1 and held[s] == w
+            reading = s
+            if w + (S - 1) * grid < n_items:      # the next load, as k lands
+                load(w + (S - 1) * grid, (k + S - 1) % S)
+            page, _, h0, nh = item_of(w)
+            tile, row_elems = ring[s], nh * hd
+            for hl in range(nh):            # warp hl % kWarps takes head hl
+                lane_max = np.zeros(32, np.float32)
+                for lane in range(32):
+                    for r, c in vec_cells[lane]:
+                        at = r * row_elems + hl * hd + c * kvec
+                        lane_max[lane] = max(lane_max[lane],
+                                             np.abs(tile[at:at + kvec]).max())
+                for off in (16, 8, 4, 2, 1):          # __shfl_xor_sync
+                    lane_max = np.maximum(lane_max, lane_max[lanes ^ off])
+                assert (lane_max == lane_max[0]).all()
+                scale = lane_max[0] / np.float32(127)
+                safe = scale if scale > 0 else np.float32(1)
+                scales[page * H + h0 + hl] = scale
+                s_writes[page * H + h0 + hl] += 1
+                r, c = group_cells[:, 0], group_cells[:, 1]
+                src = r * row_elems + hl * hd + c * codes
+                y = tile[src[:, None] + np.arange(codes)] / safe
+                # the kernel clips, then rounds half to even in the
+                # conversion; the plain version rounds, then clips
+                code = np.rint(np.fmin(np.fmax(y, -127), 127)).astype(np.int8)
+                dst = page * page_elems + r * H * hd + (h0 + hl) * hd + c * codes
+                assert (dst % codes == 0).all()       # aligned stores
+                at = dst[:, None] + np.arange(codes)
+                q[at] = code
+                np.add.at(q_writes, at, 1)
+            reading = None                            # __syncthreads
+    assert (q_writes == 1).all() and (s_writes == 1).all()
+    assert (loaded == 1).all()
+    return q.reshape(L, n, ps, H, hd), scales.reshape(L, n, 1, H, 1)
+
+
+def _q8_pool(rng, shape, dtype):
+    pages_np, pages = _values(rng, (2, N_PHYS) + shape, dtype)
+    pages_np[:, 5] = 0.0                          # an all-zero page
+    pages_np[:, 2, :, shape[1] - 1] = 0.0         # an all-zero head
+    pages = torch.from_numpy(pages_np).to(DTYPES[dtype][0])
+    return pages_np, pages
+
+
+Q8_IDS = np.array([7, 2, 5, 5, 1, 8, 8, 8], np.int32)
+
+
+def _check_q8(pages_np, pages, dtype, grid, jax_too):
+    esz = pages.element_size()
+    q, scales = gather_q8_model(pages_np, Q8_IDS, esz, GRIDS[grid])
+    tq, ts = tswap.swap_gather_pages_q8(pages, torch.from_numpy(Q8_IDS))
+    np.testing.assert_array_equal(q, tq.numpy())
+    np.testing.assert_array_equal(scales.view(np.int32),
+                                  ts.numpy().view(np.int32))
+    assert (scales[:, 2] == 0).all() and (scales[:, 1, :, -1] == 0).all()
+    assert not q[:, 2].any() and not q[:, 1, :, -1].any()
+    if jax_too:
+        jp = jnp.asarray(pages_np, DTYPES[dtype][1])
+        for use_pallas in (False, True):
+            jq, js = jswap.swap_gather_pages_q8(jp, jnp.asarray(Q8_IDS),
+                                                use_pallas=use_pallas,
+                                                interpret=True)
+            jq, js = np.asarray(jq), np.asarray(js)
+            np.testing.assert_allclose(scales, js, rtol=1e-6)
+            # codes exactly where the two scales agree bitwise; where XLA's
+            # is an ulp away, a code on a rounding boundary may move a step
+            same = np.broadcast_to(scales.view(np.int32) == js.view(np.int32),
+                                   q.shape)
+            np.testing.assert_array_equal(q[same], jq[same])
+            assert np.abs(q.astype(np.int32) - jq).max() <= 1
+
+
+@pytest.mark.parametrize("grid", ["1cta", "h100"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("H", [1, 2, 16, 32])
+def test_gather_q8_model_matches_plain_and_jax(rng, H, dtype, grid):
+    """hd 64, page 16: a page smaller than a stage (H 1 and 2), one stage
+    long (H 16 bf16: the split serve page) and several (H 16 f32, H 32: the
+    fused serve page)."""
+    pages_np, pages = _q8_pool(rng, (16, H, 64), dtype)
+    plan = q8_plan(16, H, 64, pages.element_size())
+    page_bytes = 16 * H * 64 * pages.element_size()
+    assert plan["n_hblk"] == -(-page_bytes // STAGE_BYTES)
+    _check_q8(pages_np, pages, dtype, grid, jax_too=True)
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("case", [
+    ("float32", (16, 64, 128)),   # 512 KiB pages, 16 head blocks of 4
+    ("float32", (16, 12, 64)),    # blocks of 8 and 4 heads
+    ("float32", (16, 2, 1024)),   # one head (64 KiB) over a stage: per-row loads
+    ("bfloat16", (8, 2, 8)),      # hd not a multiple of 16: 8 codes a store
+    ("float32", (8, 3, 4)),       # 4 codes a store
+], ids=["512KiB", "partial_block", "big_head", "codes8", "codes4"])
+def test_gather_q8_model_edges(rng, case, grid):
+    dtype, shape = case
+    pages_np, pages = _q8_pool(rng, shape, dtype)
+    _check_q8(pages_np, pages, dtype, grid, jax_too=shape[2] <= 64)
+
+
+def test_quantize_clip_then_round_equals_round_then_clip():
+    """The kernel's code, fmin(fmax(y, -127), 127) rounded half to even by
+    the conversion, equals the plain version's clip(round(y)) at ties, the
+    bounds, out of range and for NaN (fmaxf drops it: -127 either way)."""
+    y = np.array([-np.inf, -1e9, -128.0, -127.5, -127.49, -127.0, -126.5,
+                  -2.5, -1.5, -0.5, -0.0, 0.0, 0.5, 1.5, 2.5, 63.5, 126.5,
+                  126.51, 127.0, 127.5, 128.0, 1e9, np.inf], np.float32)
+    y = np.concatenate([y, np.random.default_rng(0).uniform(
+        -200, 200, 10_000).astype(np.float32)])
+    kernel = np.rint(np.fmin(np.fmax(y, -127), 127))
+    plain = np.fmin(np.fmax(np.rint(y), -127), 127)
+    np.testing.assert_array_equal(kernel, plain)
+    assert np.rint(np.fmin(np.fmax(np.float32(np.nan), -127), 127)) == -127
+
+
+@pytest.mark.parametrize("per_row", [1, 2, 3, 4, 8, 16, 31, 32, 33, 64, 70, 256])
+def test_walk_visits_each_cell_once(per_row):
+    """``Walk``'s division-free steps visit cells lane, lane + 32, ... in
+    row-major order: every cell of the rows once, over the 32 lanes."""
+    rows = 5
+    seen = [rc for lane in range(32) for rc in walk(lane, per_row, rows)]
+    assert sorted(seen) == [(r, c) for r in range(rows) for c in range(per_row)]
+    for lane in range(32):
+        want = [divmod(v, per_row) for v in range(lane, rows * per_row, 32)]
+        assert walk(lane, per_row, rows) == want
+
+
+def test_q8_plan_bounds_shared_memory():
+    """A stage stays bounded whatever H is; a head whose rows exceed
+    kMaxStageBytes takes the two-pass kernel; the ring fits a CTA's shared
+    memory, and the scatter's ring fits kCtasPerSm CTAs on an SM."""
+    for ps, H, hd, esz in ((16, 256, 128, 4), (16, 16, 64, 2), (16, 1, 1152, 4),
+                           (16, 256, 8, 2)):
+        plan = q8_plan(ps, H, hd, esz)
+        assert plan["stage"] <= max(STAGE_BYTES, ps * hd * esz)
+        assert Q8_STAGES * plan["stage"] + 4 * 256 + 64 <= MAX_SMEM_PER_CTA
+        assert Q8_STAGES * MAX_STAGE_BYTES + 4 * 256 + 64 <= MAX_SMEM_PER_CTA
+    assert q8_plan(16, 2, 2048, 4) is None          # chip_smoke.py's tall head
+    assert q8_plan(16, 2, 1152, 4) is not None
+    assert q8_plan(16, 64, 128, 4)["n_hblk"] == 16  # chip_smoke.py's 512 KiB
+    assert (SCATTER_CTAS_PER_SM * (SCATTER_STAGES * CHUNK_BYTES + 1024 + 64)
+            <= SMEM_PER_SM)
+    assert Q8_THREADS % 32 == 0 and CHUNK_BYTES % 16 == 0
