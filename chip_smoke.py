@@ -46,12 +46,15 @@ Phases, each of which raises (exit code != 0) on failure:
    for the INT8 pair), each kernel and library call also on the device
    alone, each wrapper's host time per call, and the host copies of one
    staged tensor; the bound counts each distinct page once (the real ones
-   and one sink).  Then two small f32 pools at the edges of the scatter's
-   and INT8 gather's designs (512 KiB pages; a head of 128 KiB) with ids
-   holding a run of equal real ids and a tail of sink ids: the same
+   and one sink).  Then four small f32 pools at the edges of the
+   redesigned kernels (512 KiB pages; a head of 128 KiB; 300 heads, which
+   the INT8 gather refuses; 36-code pages, off a 16-byte boundary) with
+   ids holding a run of equal real ids and a tail of sink ids: the same
    bitwise checks, the repeated page left out of the comparison with the
-   plain scatters as the sink is, and the fp scatter's repeated pages
-   holding the last staged row of their run.
+   plain scatters as the sink is, and both scatters' repeated pages
+   holding the last staged row of their run (the INT8 scatter its
+   dequantization; its staged rows are fresh values quantized, so that
+   the rows of a run differ).
 5. serve: what ``python -m repro_torch.launch.serve --full`` runs -- 32
    ShareGPT-like requests through the pipelined engine with paged KV --
    with the kernels' launch counters zeroed after warm-up; every request
@@ -715,20 +718,35 @@ def swap_case(torch, timer, gen, pages, bucket, n_real, timed):
 
 # small f32 pools at the edges of the redesigned kernels: 512 KiB pages
 # (more chunks than the scatter's ring holds, 16 head blocks of the INT8
-# gather), and a head whose rows (128 KiB) exceed a stage of the INT8 gather
-# (its two-pass path)
-SWAP_EDGE_POOLS = ((2, 9, 16, 64, 128), (2, 9, 16, 2, 2048))
+# gather), a head whose rows (128 KiB) exceed a stage of the INT8 gather
+# (its two-pass path), 300 heads (the INT8 scatter's scale slots wrap
+# around H, and its 4096-code chunks start inside a head row of 12), and
+# 36-code pages (the INT8 scatter's codes off a 16-byte boundary)
+SWAP_EDGE_POOLS = ((2, 9, 16, 64, 128), (2, 9, 16, 2, 2048),
+                   (2, 9, 16, 300, 12), (2, 9, 3, 3, 4))
+
+
+def q8_gather_max_heads() -> int:
+    """The most heads a page may have for the INT8 gather (``kMaxHeads`` in
+    ``csrc/swap_pages_common.cuh``); a pool with more takes its plain
+    version's codes."""
+    import re
+    src = (ROOT / "src/repro_torch/kernels/csrc/swap_pages_common.cuh")
+    return int(re.search(r"constexpr int kMaxHeads = (\d+);",
+                         src.read_text()).group(1))
 
 
 def swap_edge_case(torch, gen, shape):
     """Phase 4's bitwise checks on ``shape``, with ids that hold a run of
     three equal real ids and a tail of three sink ids.  The gathers write
     every row.  The scatters equal their plain versions on every page but
-    the sink and the repeated one, and change no page outside the ids; the
-    fp scatter leaves both holding the last staged row of their run (the
-    TPU kernel's sequential grid: last write wins).  Returns max |kernel -
-    plain| per kernel."""
+    the sink and the repeated one, and change no page outside the ids; both
+    leave the sink and the repeated page holding the last staged row of
+    their run, the INT8 scatter its dequantization (the TPU kernel's
+    sequential grid: last write wins).  Returns max |kernel - plain| per
+    kernel."""
     from repro_torch.kernels import swap as sw
+    from repro_torch.kernels.ref import dequantize_pages
 
     sink = shape[1] - 1
     p = torch.randperm(sink, generator=gen, device="cuda").tolist()
@@ -754,20 +772,33 @@ def swap_edge_case(torch, gen, shape):
             and same_bits(p_k[:, sink], staged[:, 7]),
             f"swap_scatter_pages at {shape}: a repeated id's page does not "
             "hold the last staged row of its run")
-    qk, sk = sw.swap_gather_pages_q8(pages, ids)
     qp, sp = sw.swap_gather_pages_q8_plain(pages, ids)
-    require(same_bits(qk, qp) and same_bits(sk, sp),
-            f"swap_gather_pages_q8 at {shape}: codes or scales disagree")
-    require(bool((sk[:, 0, :, 1] == 0).all()),
-            f"swap_gather_pages_q8 at {shape}: an all-zero head has a scale "
-            "!= 0")
-    err["swap_gather_pages_q8"] = max(max_abs_diff(qk, qp),
-                                      max_abs_diff(sk, sp))
+    if shape[3] <= q8_gather_max_heads():
+        qk, sk = sw.swap_gather_pages_q8(pages, ids)
+        require(same_bits(qk, qp) and same_bits(sk, sp),
+                f"swap_gather_pages_q8 at {shape}: codes or scales disagree")
+        require(bool((sk[:, 0, :, 1] == 0).all()),
+                f"swap_gather_pages_q8 at {shape}: an all-zero head has a "
+                "scale != 0")
+        err["swap_gather_pages_q8"] = max(max_abs_diff(qk, qp),
+                                          max_abs_diff(sk, sp))
+    # the INT8 scatter's staged rows are quantized fresh values, so that the
+    # rows of a run differ (the gather's codes repeat with its ids); row 0
+    # has an all-zero head (scale 0)
+    staged = torch.randn(got.shape, generator=gen, device="cuda")
+    staged[:, 0, :, 1] = 0
+    qp, sp = sw.swap_gather_pages_q8_plain(
+        staged, torch.arange(len(dst), dtype=torch.int32, device="cuda"))
     p_k = sw.swap_scatter_pages_q8(pages.clone(), dst, qp, sp)
     p_p = sw.swap_scatter_pages_q8_plain(pages.clone(), dst, qp, sp)
     err["swap_scatter_pages_q8"] = check_scatter(
         torch, f"swap_scatter_pages_q8 at {shape}", p_k, p_p, pages, dst,
         repeated=(p[4],))
+    deq = dequantize_pages(qp[:, [3, 7]], sp[:, [3, 7]], pages.dtype)
+    require(same_bits(p_k[:, p[4]], deq[:, 0])
+            and same_bits(p_k[:, sink], deq[:, 1]),
+            f"swap_scatter_pages_q8 at {shape}: a repeated id's page does not "
+            "hold the dequantized last staged row of its run")
     torch.cuda.synchronize()
     return err
 
@@ -848,10 +879,13 @@ def swap_kernel_phase(torch):
         torch.cuda.empty_cache()
     for shape in SWAP_EDGE_POOLS:
         e = swap_edge_case(torch, gen, shape)
+        skipped = ("" if "swap_gather_pages_q8" in e else
+                   f" (the INT8 gather refuses {shape[3]} heads: its plain "
+                   "version's codes)")
         log(f"  swap kernels float32 {shape}, ids with a run of 3 equal real "
             "ids and 3 sink ids: bitwise equal to the plain versions, pages "
             "outside the ids unchanged, the last of each run written; max "
-            f"|kernel - plain| {max(e.values()):.3e}")
+            f"|kernel - plain| {max(e.values()):.3e}{skipped}")
         for name, v in e.items():
             worst[name] = max(worst[name], v)
     # the kernels line reports the timed case and the worst error over

@@ -3,15 +3,15 @@
 //
 // The page pool is (L, n_phys, page_size, H, hd) and the staging tensor (L,
 // n, page_size, H, hd), both contiguous, so one page is page_size * H * hd
-// contiguous elements.  The gather and the INT8 scatter run one CTA of
-// kThreads per (page, layer), grid (n, L): a CTA reads its own page id from
-// `ids` (what the TPU kernels got by scalar prefetch) and walks the page in
-// 16-byte vectors, thread t on vectors t, t + kThreads, ...: neighbouring
-// threads on neighbouring addresses.  The scatter and the INT8 gather run
-// persistent CTAs that stage pages in shared memory by bulk copies (see
-// their files).  The wrappers require `hd * sizeof(T)` to be a multiple of
-// 16, so a vector never straddles two heads: vector v of a page belongs to
-// head (v / (hd / kVec)) % H.
+// contiguous elements.  The gather (and the INT8 gather's two-pass kernel)
+// run one CTA of kThreads per (page, layer), grid (n, L): a CTA reads its
+// own page id from `ids` (what the TPU kernels got by scalar prefetch) and
+// walks the page in 16-byte vectors, thread t on vectors t, t + kThreads,
+// ...: neighbouring threads on neighbouring addresses.  The scatter, the
+// INT8 gather and the INT8 scatter run persistent CTAs that stage pages in
+// shared memory by bulk copies (see their files).  The wrappers require
+// `hd * sizeof(T)` to be a multiple of 16, so a vector never straddles two
+// heads: vector v of a page belongs to head (v / (hd / kVec)) % H.
 //
 // The ids are trusted: every id must lie in [0, n_phys).  The engine builds
 // them from the pool's block tables and pads with the sink page.
@@ -26,7 +26,7 @@
 namespace swap {
 
 constexpr int kThreads = 256;
-constexpr int kMaxHeads = 256;        // H per page the INT8 kernels take
+constexpr int kMaxHeads = 256;        // H per page the INT8 gather takes
 
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 

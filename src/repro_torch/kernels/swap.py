@@ -14,15 +14,16 @@ are dropped after the host copy, scattered ones land in the never-read sink.
 heads) as well as the split one.
 
 Bound on an H100: bytes (pure data movement, plus a few operations per
-element for the INT8 pair).  The gather and the INT8 scatter
-(``csrc/swap_gather_pages.cu``, ``csrc/swap_scatter_pages_q8.cu``) run one
-CTA per (page, layer) moving 16-byte vectors, neighbouring threads on
-neighbouring addresses.  The scatter and the INT8 gather run persistent CTAs
-that stage pages through a ring in shared memory by bulk asynchronous
-copies: the scatter moves each target page once, writing nothing for an id
-that the next id repeats (in a run of equal ids the last one wins, as the
-TPU kernel's sequential grid leaves it), and the INT8 gather reads each
-input byte once, taking each head's absmax and its codes from the same tile.
+element for the INT8 pair).  The gather (``csrc/swap_gather_pages.cu``)
+runs one CTA per (page, layer) moving 16-byte vectors, neighbouring threads
+on neighbouring addresses.  The other three run persistent CTAs that stage
+pages through a ring in shared memory by bulk asynchronous copies.  Both
+scatters move each target page once, writing nothing for an id that the
+next id repeats (in a run of equal ids the last one wins, as the TPU
+kernel's sequential grid leaves it); the INT8 scatter's consumer warps
+dequantize each staged chunk of codes with its scales into 16-byte stores.
+The INT8 gather reads each input byte once, taking each head's absmax and
+its codes from the same tile.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.  The scatters update ``pages`` in place and

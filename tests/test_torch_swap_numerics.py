@@ -1,27 +1,32 @@
-"""The index math of the two redesigned swap kernels, modelled on the CPU.
+"""The index math of the three redesigned swap kernels, modelled on the CPU.
 
 ``csrc/swap_scatter_pages.cu`` walks (layer, item, chunk) work items over
 persistent CTAs, one elected thread moving each chunk of a page through a
 ring of shared-memory stages by bulk copies, and writes nothing for an id
-that the next id repeats.  ``csrc/swap_gather_pages_q8.cu`` walks (layer,
-page, head block) items, loads each into a ring stage once, takes every
-head's absmax from shared memory (a warp per head, a shuffle reduction) and
-its codes from the same tile, 16 (or 8, or 4) a store.  This file models
-both walks in numpy with the constants read from the sources -- the ring's
-stages and their mbarrier phases, the refill rule, the chunking of large
-pages, the head blocks, the repeated-id rule -- and holds the models against
-the plain versions (``repro_torch.kernels.swap``, bitwise) and against
-``repro.kernels.swap`` run as tests/test_torch_swap.py runs it (its jnp path
-and its Pallas kernels in interpret mode): the scatter bitwise; scales
-within rtol 1e-6 (XLA may divide by 127 as a multiply by the reciprocal, an
-ulp away), and INT8 codes exactly wherever the two scales agree bitwise and
-within one step where they do not.  Each model asserts that every (layer,
-page) of its output is covered once and that each stage holds the item it
-is read as.
+that the next id repeats.  ``csrc/swap_scatter_pages_q8.cu`` walks the same
+items over chunks of codes: a producer warp loads each chunk and its scale
+slots into a ring stage (a bulk copy, small copies for unaligned ends and
+the scales) and consumer warps dequantize it into 16-byte stores, the same
+repeated-id rule deciding which items write.  ``csrc/swap_gather_pages_q8.cu``
+walks (layer, page, head block) items, loads each into a ring stage once,
+takes every head's absmax from shared memory (a warp per head, a shuffle
+reduction) and its codes from the same tile, 16 (or 8, or 4) a store.  This
+file models the walks in numpy with the constants read from the sources --
+the ring's stages and their mbarrier phases, the refill rule, the chunking
+of large pages, the head blocks, the scale slots, the repeated-id rule --
+and holds the models against the plain versions
+(``repro_torch.kernels.swap``, bitwise) and against ``repro.kernels.swap``
+run as tests/test_torch_swap.py runs it (its jnp path and its Pallas
+kernels in interpret mode): the scatters bitwise; scales within rtol 1e-6
+(XLA may divide by 127 as a multiply by the reciprocal, an ulp away), and
+INT8 codes exactly wherever the two scales agree bitwise and within one
+step where they do not.  Each model asserts that every (layer, page) of its
+output is covered once and that each stage holds the item it is read as.
 
 The CUDA kernels themselves need nvcc and a card; ``chip_smoke.py`` phase 4
 holds them bitwise against the plain versions on the GPU.
 """
+import functools
 import re
 from pathlib import Path
 
@@ -37,6 +42,7 @@ from repro_torch.kernels import swap as tswap
 CSRC = Path(native.__file__).resolve().parent / "csrc"
 SCATTER_SRC = (CSRC / "swap_scatter_pages.cu").read_text()
 GATHER_Q8_SRC = (CSRC / "swap_gather_pages_q8.cu").read_text()
+SCATTER_Q8_SRC = (CSRC / "swap_scatter_pages_q8.cu").read_text()
 
 
 def _constant(src, name):
@@ -51,6 +57,11 @@ STAGE_BYTES = _constant(GATHER_Q8_SRC, "kStageBytes")
 Q8_STAGES = _constant(GATHER_Q8_SRC, "kStages")
 MAX_STAGE_BYTES = _constant(GATHER_Q8_SRC, "kMaxStageBytes")
 Q8_CTAS_PER_SM = _constant(GATHER_Q8_SRC, "kCtasPerSm")
+Q8S_CHUNK_CODES = _constant(SCATTER_Q8_SRC, "kChunkCodes")
+Q8S_STAGES = _constant(SCATTER_Q8_SRC, "kStages")
+Q8S_CONSUMERS = 32 * _constant(SCATTER_Q8_SRC, "kConsumerWarps")
+Q8S_CTAS_PER_SM = _constant(SCATTER_Q8_SRC, "kCtasPerSm")
+Q8S_HEADER_BYTES = _constant(SCATTER_Q8_SRC, "kHeaderBytes")
 MAX_SMEM_PER_CTA = 232448        # an H100 CTA's shared memory limit
 SMEM_PER_SM = 233472             # an H100 SM's shared memory
 H100_SMS = 132
@@ -250,6 +261,253 @@ def test_scatter_model_skips_repeated_ids_only():
     written = scatter_model(pool, ids, staged, GRIDS["1cta"])
     assert sorted(written) == [(0, 1, 0), (0, 1, 0), (0, 2, 0), (0, 3, 0)]
     assert (pool[0, 3] == staged[0, 5]).all() and (pool[0, 2] == staged[0, 2]).all()
+
+
+# -- the INT8 scatter's walk -------------------------------------------------------
+def q8_scatter_plan(ps, H, hd, esz):
+    """What ``launch`` in csrc/swap_scatter_pages_q8.cu sets up: a page's
+    chunks, the scale slots a stage holds at most, and a stage's layout (a
+    header, the codes with room for a 16-byte misalignment, the slots)."""
+    kvec = 16 // esz
+    vpr = hd // kvec
+    page_elems = ps * H * hd
+    rows = (Q8S_CHUNK_CODES // kvec + vpr - 2) // vpr + 1
+    max_slots = min(H, rows)
+    scale_off = Q8S_HEADER_BYTES + Q8S_CHUNK_CODES + 16
+    return dict(kvec=kvec, vpr=vpr, page_elems=page_elems,
+                n_chunks=-(-page_elems // Q8S_CHUNK_CODES),
+                max_slots=max_slots, scale_off=scale_off,
+                stage=-(-(scale_off + 4 * max_slots) // 128) * 128)
+
+
+@functools.lru_cache(maxsize=None)
+def q8_walk(col0, nv, vpr, H):
+    """Every consumer thread's (vector, slot) pairs over a chunk of ``nv``
+    output vectors whose first is column ``col0`` of its head row, stepped
+    as the kernel steps them: one divide and one modulo a chunk, then
+    ``kConsumerThreads`` vectors a step with the slot carried along."""
+    dr, dc = divmod(Q8S_CONSUMERS, vpr)
+    dk = dr % H
+    vs, ks = [], []
+    for t in range(Q8S_CONSUMERS):
+        c = col0 + t
+        r = c // vpr
+        c -= r * vpr
+        k = r % H
+        for v in range(t, nv, Q8S_CONSUMERS):
+            vs.append(v)
+            ks.append(k)
+            c += dc
+            k += dk
+            if c >= vpr:
+                c -= vpr
+                k += 1
+            if k >= H:
+                k -= H
+            assert 0 <= k < H                 # one subtraction suffices
+    return np.array(vs, np.int64), np.array(ks, np.int64)
+
+
+def scatter_q8_model(pages, ids, q, scales, grid):
+    """``csrc/swap_scatter_pages_q8.cu`` on ``pages`` (a contiguous torch CPU
+    tensor of the pool's dtype, updated in place) from ``q`` (int8, (L, n,
+    page_size, H, hd), its base 16-byte aligned as the wrapper requires) and
+    ``scales`` (f32, (L, n, 1, H, 1)) with the grid ``grid(n_items,
+    kCtasPerSm)``: every CTA's producer warp filling its ring as far as the
+    stages' empty mbarriers let it, and its consumer warps taking each
+    stage once its full mbarrier's phase has completed.  Returns the
+    (layer, page, chunk) of every chunk written, and asserts that each
+    stage holds the chunk it is read as, that every copy is aligned as its
+    kind needs, that every vector of a chunk is stored once, and that each
+    vector's slot holds its head's scale."""
+    L, n_phys, ps, H, hd = pages.shape
+    n = len(ids)
+    p = q8_scatter_plan(ps, H, hd, pages.element_size())
+    kvec, vpr, page_elems = p["kvec"], p["vpr"], p["page_elems"]
+    n_chunks, scale_off = p["n_chunks"], p["scale_off"]
+    n_items = L * n * n_chunks
+    grid = grid(n_items, Q8S_CTAS_PER_SM)
+    S, hb = Q8S_STAGES, Q8S_HEADER_BYTES
+    codes_in = q.contiguous().view(-1).numpy().view(np.uint8)
+    scales_in = scales.contiguous().view(-1).numpy()
+    out = pages.view(-1)
+    written = []
+
+    def writes(w):
+        i = (w // n_chunks) % n
+        return i + 1 == n or ids[i + 1] != ids[i]
+
+    def items(b):
+        """CTA b's writing items in the order its producer warp fills them:
+        the lanes evaluate items w0 + lane * grid, 32 at a time, and the
+        warp takes the writers among them in lane order."""
+        for w0 in range(b, n_items, 32 * grid):
+            lanes = [w0 + j * grid for j in range(32) if w0 + j * grid < n_items]
+            yield from (w for w in lanes if writes(w))
+
+    def fill(ring, s, w):
+        """The producer warp's copies of item w into stage s; returns the
+        header and the head each slot's scale belongs to."""
+        page, c = divmod(w, n_chunks)
+        l, i = divmod(page, n)
+        e0 = c * Q8S_CHUNK_CODES
+        nb = min(Q8S_CHUNK_CODES, page_elems - e0)
+        src = page * page_elems + e0            # the base is 16-byte aligned
+        shift = src % 16
+        head = min(nb, (16 - shift) % 16)
+        body = (nb - head) // 16 * 16
+        tail = nb - head - body
+        codes = hb + shift
+        assert shift % kvec == 0 and head % kvec == 0 and tail % kvec == 0
+        assert codes + nb <= scale_off
+        if body:                                # lane 0: cp.async.bulk
+            assert (src + head) % 16 == 0 and (codes + head) % 16 == 0
+            ring[s, codes + head:codes + head + body] = \
+                codes_in[src + head:src + head + body]
+        pieces = [j * kvec for j in range(head // kvec)] + \
+            [head + body + j * kvec for j in range(tail // kvec)]
+        assert len(pieces) <= 32                # a lane each
+        for o in pieces:                        # cp.async of kVec bytes
+            ring[s, codes + o:codes + o + kvec] = codes_in[src + o:src + o + kvec]
+        col0 = (e0 // kvec) % vpr
+        nv = nb // kvec
+        n_slots = min(H, (col0 + nv - 1) // vpr + 1)
+        assert n_slots <= p["max_slots"]
+        assert scale_off + 4 * n_slots <= p["stage"]
+        heads = (e0 // hd) % H + np.arange(n_slots)
+        heads[heads >= H] -= H                  # lanes k, k + 32, ...
+        ring[s, scale_off:scale_off + 4 * n_slots] = \
+            scales_in[page * H + heads].view(np.uint8)
+        dst = (l * n_phys + int(ids[i])) * page_elems + e0
+        return (dst, nv, col0, shift, e0, (l, int(ids[i]), c)), heads
+
+    for b in range(grid):
+        ring = np.zeros((S, p["stage"]), np.uint8)
+        header, slot_heads = [None] * S, [None] * S
+        full_done, empty_done = [0] * S, [0] * S
+        todo, f_prod, f_cons, producing = items(b), 0, 0, True
+        while True:
+            # the producer fills stage f % kStages once its empty mbarrier's
+            # phase f / kStages - 1 has completed
+            while producing and (f_prod < S
+                                 or empty_done[f_prod % S] >= f_prod // S):
+                s = f_prod % S
+                assert f_prod < S or empty_done[s] == f_prod // S
+                w = next(todo, None)
+                if w is None:
+                    header[s], producing = None, False    # nv = -1
+                else:
+                    header[s], slot_heads[s] = fill(ring, s, w)
+                full_done[s] += 1
+                f_prod += 1
+            # the consumers wait for full phase f / kStages of stage s
+            s = f_cons % S
+            assert full_done[s] == f_cons // S + 1
+            if header[s] is None:
+                break
+            dst, nv, col0, shift, e0, where = header[s]
+            written.append(where)
+            vs, ks = q8_walk(col0, nv, vpr, H)
+            assert np.array_equal(np.sort(vs), np.arange(nv))
+            assert (ks < len(slot_heads[s])).all()
+            # each vector's slot holds the scale of the vector's head
+            assert np.array_equal(slot_heads[s][ks],
+                                  ((e0 + vs * kvec) // hd) % H)
+            codes = ring[s, hb + shift:hb + shift + nv * kvec].view(np.int8)
+            slots = ring[s, scale_off:scale_off + 4 * len(slot_heads[s])]
+            prod = (codes.reshape(nv, kvec)[vs].astype(np.float32)
+                    * slots.view(np.float32)[ks][:, None])
+            at = dst + vs[:, None] * kvec + np.arange(kvec)
+            out[torch.from_numpy(at.reshape(-1))] = \
+                torch.from_numpy(prod.reshape(-1)).to(pages.dtype)
+            empty_done[s] += 1                  # each consumer warp arrives
+            f_cons += 1
+    return written
+
+
+def _bits(x):
+    """A float tensor's or array's bits as a numpy integer array."""
+    if isinstance(x, torch.Tensor):
+        return x.view({2: torch.int16, 4: torch.int32}[x.element_size()]).numpy()
+    return np.asarray(x).view({2: np.int16, 4: np.int32}[np.asarray(x).itemsize])
+
+
+def _check_scatter_q8(rng, shape, dtype, grid):
+    """The model on ids with a run of three equal real ids and a tail of
+    three sink ids (``IDS``), from codes and scales quantized by the plain
+    gather of random pages, one head of staged item 3 all zero (scale 0)."""
+    ps, H, hd = shape
+    _, pages = _values(rng, (2, N_PHYS, ps, H, hd), dtype)
+    _, src = _values(rng, (2, len(IDS), ps, H, hd), dtype)
+    src[:, 3, :, H - 1] = 0
+    q, scales = tswap.swap_gather_pages_q8_plain(
+        src, torch.arange(len(IDS), dtype=torch.int32))
+    assert (scales[:, 3, 0, H - 1, 0] == 0).all()
+    got = pages.clone()
+    written = scatter_q8_model(got, IDS, q, scales, GRIDS[grid])
+    # only the last id of each run writes, each of its chunks exactly once
+    n_chunks = q8_scatter_plan(ps, H, hd, pages.element_size())["n_chunks"]
+    want = {(l, pg, c) for l in range(2) for pg in LAST_OF_RUN
+            for c in range(n_chunks)}
+    assert len(written) == len(set(written)) and set(written) == want
+    deq = tswap.dequantize_pages(q, scales, pages.dtype)
+    for page, item in LAST_OF_RUN.items():
+        np.testing.assert_array_equal(_bits(got[:, page]), _bits(deq[:, item]))
+    assert not got[:, 2, :, H - 1].float().any()         # the zero head
+    outside = [pg for pg in range(N_PHYS) if pg not in LAST_OF_RUN]
+    np.testing.assert_array_equal(_bits(got[:, outside]), _bits(pages[:, outside]))
+    # the plain version on every page written once by it
+    plain = tswap.swap_scatter_pages_q8(pages.clone(), torch.from_numpy(IDS),
+                                        q, scales)
+    once = [pg for pg in range(N_PHYS) if (IDS == pg).sum() <= 1]
+    np.testing.assert_array_equal(_bits(got[:, once]), _bits(plain[:, once]))
+    # the JAX package, both paths: the whole pool, bitwise (its sequential
+    # grid leaves the last of each run, and so does XLA's scatter here)
+    jp = jnp.asarray(pages.float().numpy(), DTYPES[dtype][1])
+    jq, js = jnp.asarray(q.numpy()), jnp.asarray(scales.numpy())
+    for use_pallas in (False, True):
+        want = jswap.swap_scatter_pages_q8(jnp.array(jp), jnp.asarray(IDS), jq,
+                                           js, use_pallas=use_pallas,
+                                           interpret=True)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", sorted(SCATTER_SHAPES))
+def test_scatter_q8_model_matches_plain_and_jax(rng, shape, dtype, grid):
+    _check_scatter_q8(rng, SCATTER_SHAPES[shape], dtype, grid)
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("case", [
+    ("float32", (16, 64, 128)),   # 512 KiB pages: 32 chunks, 8 head rows each
+    ("float32", (4, 300, 12)),    # 300 heads: slots wrap mod H, chunks start
+                                  # mid-row (4096 codes are not whole rows of 12)
+    ("bfloat16", (2, 300, 8)),    # 300 heads of one 16-byte vector a row:
+                                  # a slot for every vector, wrapping mod H
+    ("float32", (3, 3, 4)),       # 36 codes a page: codes off a 16-byte
+    ("bfloat16", (1, 3, 8)),      # boundary, copied as 4- or 8-byte ends
+], ids=["512KiB", "300heads", "300heads_bf16", "unaligned_f32",
+        "unaligned_bf16"])
+def test_scatter_q8_model_edges(rng, case, grid):
+    dtype, shape = case
+    plan = q8_scatter_plan(*shape, 4 if dtype == "float32" else 2)
+    if shape[1] > 256:
+        assert plan["max_slots"] == shape[1]
+    _check_scatter_q8(rng, shape, dtype, grid)
+
+
+def test_q8_walk_slots_follow_heads():
+    """The division-free walk's slot equals (head row of the vector) mod H
+    for column offsets, head widths and head counts around the step's
+    wrap points."""
+    for vpr in (1, 2, 3, 7, 8, 16, 255, 256, 257, 600):
+        for H in (1, 2, 3, 16, 300):
+            for col0 in {0, 1, vpr - 1}:
+                nv = 3 * Q8S_CONSUMERS + 5
+                vs, ks = q8_walk(col0, nv, vpr, H)
+                np.testing.assert_array_equal(ks, ((col0 + vs) // vpr) % H)
 
 
 # -- the INT8 gather's walk ------------------------------------------------------
@@ -477,3 +735,20 @@ def test_q8_plan_bounds_shared_memory():
     assert (SCATTER_CTAS_PER_SM * (SCATTER_STAGES * CHUNK_BYTES + 1024 + 64)
             <= SMEM_PER_SM)
     assert Q8_THREADS % 32 == 0 and CHUNK_BYTES % 16 == 0
+
+
+def test_scatter_q8_plan_bounds_shared_memory():
+    """The INT8 scatter's stage stays bounded whatever H is (its scale slots
+    are at most a chunk's head rows), kCtasPerSm CTAs fit on an SM at the
+    serve pools, and the largest stage (f32, 16-byte heads: a slot for
+    each of a chunk's 1,024 head rows) still fits a CTA."""
+    serve = [q8_scatter_plan(16, H, 64, 2) for H in (16, 32)]
+    for p in serve:
+        assert p["max_slots"] <= 32 and p["n_chunks"] * Q8S_CHUNK_CODES == p["page_elems"]
+        assert Q8S_CTAS_PER_SM * (Q8S_STAGES * p["stage"] + 1024 + 128) <= SMEM_PER_SM
+    worst = max((q8_scatter_plan(16, H, hd, esz) for H in (1, 300, 4096, 65536)
+                 for hd, esz in ((4, 4), (8, 2), (64, 2), (12, 4))),
+                key=lambda p: p["stage"])
+    assert worst["max_slots"] == Q8S_CHUNK_CODES // 4
+    assert Q8S_STAGES * worst["stage"] + 128 <= MAX_SMEM_PER_CTA
+    assert Q8S_CHUNK_CODES % 16 == 0 and Q8S_HEADER_BYTES % 16 == 0
