@@ -47,8 +47,9 @@ Phases, each of which raises (exit code != 0) on failure:
    alone, each wrapper's host time per call, and the host copies of one
    staged tensor; the bound counts each distinct page once (the real ones
    and one sink).  Then four small f32 pools at the edges of the
-   redesigned kernels (512 KiB pages; a head of 128 KiB; 300 heads, which
-   the INT8 gather refuses; 36-code pages, off a 16-byte boundary) with
+   redesigned kernels (512 KiB pages; a head of 128 KiB; 300 heads; 36-code
+   pages, off a 16-byte boundary; 260 heads of 128 KiB, the INT8 gather's
+   two-pass kernel over two blocks of heads) with
    ids holding a run of equal real ids and a tail of sink ids: the same
    bitwise checks, the repeated page left out of the comparison with the
    plain scatters as the sink is, and both scatters' repeated pages
@@ -60,8 +61,9 @@ Phases, each of which raises (exit code != 0) on failure:
    with the kernels' launch counters zeroed after warm-up; every request
    must finish with its full token count and both kernels must have run
    (decode 24 times per pure-decode round).
-6. serve, swap: the same with ``--preemption-mode swap --kv-blocks 48``:
-   swap preemptions happen and are all restored, the gather runs twice
+6. serve, swap: the same with ``--preemption-mode swap --kv-blocks 48
+   --interval 0`` (every request arrives at once, so the pressure bites
+   however fast the rounds run): swap preemptions happen and are all restored, the gather runs twice
    (K and V) per swap-out and the scatter twice per restore, nothing stays
    staged and the pool's invariants hold.
 7. serve, INT8 host tier: the same through ``host_kv_dtype="int8"``: the
@@ -88,7 +90,7 @@ Phases, each of which raises (exit code != 0) on failure:
    every request finishes, the fused prefill kernel runs 24 times per round
    with C > 1 and the fused decode kernel 24 times per pure-decode round,
    the split attention kernels never.  Then ``--preemption-mode swap
-   --kv-blocks 48`` on the fused pool: swap-outs happen, all are restored,
+   --kv-blocks 48 --interval 0`` on the fused pool: swap-outs happen, all are restored,
    one gather per swap-out and one scatter per restore (the fused payload
    is one tensor).  Greedy tokens against phase 5's are printed, not gated.
 13. LPRS: ``profile_engine`` + ``train_predictor`` (what ``--lprs`` runs) on
@@ -135,7 +137,7 @@ Phases, each of which raises (exit code != 0) on failure:
    ``chunked_prefill_attention`` runs exactly 24 times per round at every
    bucket (C = 1 included) and no other kernel runs.
 18. serve, dense swap: ``--full --dense-kv --preemption-mode swap
-   --kv-blocks 48``: swap-outs happen and are all restored by slot-row
+   --kv-blocks 48 --interval 0``: swap-outs happen and are all restored by slot-row
    copies (no swap kernel), nothing stays staged, the pool's invariants
    hold.  Greedy tokens of 17-18 against phase 5's are printed, not gated.
 19. NaN guard: ``--full --nan-guard`` on the split, fused and dense engines
@@ -148,6 +150,24 @@ Phases, each of which raises (exit code != 0) on failure:
    (printed as reduced): the split layout, greedy, 8 requests through
    ``TorchEngine``; every request finishes, the decode kernel runs twice
    per pure-decode round and the prefill kernel twice per round with C > 1.
+21. the compiled round: every phase above serves through CUDA graphs, one
+   per chunk bucket, captured at warm-up and replayed each round (the
+   launch counts include the replayed launches).  Here, on the split,
+   fused and dense engines at full width (bf16, 1,024 tokens of context),
+   a replay of each bucket's graph against the eager step of a second
+   engine from the same seed, on one state and the same inputs, at every
+   bucket and at C = 1 once more with three decode splits merged: the
+   sampled ids, ``lens``, ``last_token`` and every cache tensor BITWISE
+   equal; each graph engine holds one graph per bucket (printed with the
+   warm-up and capture seconds and the graph pool's bytes).  At
+   temperature 1.0, 8 replays of one idle round draw 8 different rows of
+   ids.  Then phase 5's serve in 3 interleaved pairs (graph, eager, eager,
+   graph, ...) on the split engine and one pair each on fused and dense:
+   output tok/s, mean TTFT, P99 E2E, mean ``bubble_ms`` and
+   ``enqueue_ms``, the host ms per round in ``schedule()``, in the input
+   copies and in ``dispatch``, and each round's span on the device (CUDA
+   events around ``dispatch``), each with its range; greedy tokens of
+   graph against eager printed, not gated.
 
 The second-to-last line is a JSON object listing every kernel with its
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -720,20 +740,14 @@ def swap_case(torch, timer, gen, pages, bucket, n_real, timed):
 # (more chunks than the scatter's ring holds, 16 head blocks of the INT8
 # gather), a head whose rows (128 KiB) exceed a stage of the INT8 gather
 # (its two-pass path), 300 heads (the INT8 scatter's scale slots wrap
-# around H, and its 4096-code chunks start inside a head row of 12), and
-# 36-code pages (the INT8 scatter's codes off a 16-byte boundary)
+# around H, and its 4096-code chunks start inside a head row of 12; the
+# INT8 gather's persistent kernel over more heads than a two-pass block),
+# 36-code pages (the INT8 scatter's codes off a 16-byte boundary), and 260
+# heads of 128 KiB (the INT8 gather's two-pass kernel over two head
+# blocks; 0.6 GB)
 SWAP_EDGE_POOLS = ((2, 9, 16, 64, 128), (2, 9, 16, 2, 2048),
-                   (2, 9, 16, 300, 12), (2, 9, 3, 3, 4))
-
-
-def q8_gather_max_heads() -> int:
-    """The most heads a page may have for the INT8 gather (``kMaxHeads`` in
-    ``csrc/swap_pages_common.cuh``); a pool with more takes its plain
-    version's codes."""
-    import re
-    src = (ROOT / "src/repro_torch/kernels/csrc/swap_pages_common.cuh")
-    return int(re.search(r"constexpr int kMaxHeads = (\d+);",
-                         src.read_text()).group(1))
+                   (2, 9, 16, 300, 12), (2, 9, 3, 3, 4),
+                   (2, 9, 16, 260, 2048))
 
 
 def swap_edge_case(torch, gen, shape):
@@ -773,15 +787,15 @@ def swap_edge_case(torch, gen, shape):
             f"swap_scatter_pages at {shape}: a repeated id's page does not "
             "hold the last staged row of its run")
     qp, sp = sw.swap_gather_pages_q8_plain(pages, ids)
-    if shape[3] <= q8_gather_max_heads():
-        qk, sk = sw.swap_gather_pages_q8(pages, ids)
-        require(same_bits(qk, qp) and same_bits(sk, sp),
-                f"swap_gather_pages_q8 at {shape}: codes or scales disagree")
-        require(bool((sk[:, 0, :, 1] == 0).all()),
-                f"swap_gather_pages_q8 at {shape}: an all-zero head has a "
-                "scale != 0")
-        err["swap_gather_pages_q8"] = max(max_abs_diff(qk, qp),
-                                          max_abs_diff(sk, sp))
+    qk, sk = sw.swap_gather_pages_q8(pages, ids)
+    require(same_bits(qk, qp) and same_bits(sk, sp),
+            f"swap_gather_pages_q8 at {shape}: codes or scales disagree")
+    require(bool((sk[:, 0, :, 1] == 0).all()),
+            f"swap_gather_pages_q8 at {shape}: an all-zero head has a "
+            "scale != 0")
+    err["swap_gather_pages_q8"] = max(max_abs_diff(qk, qp),
+                                      max_abs_diff(sk, sp))
+    del qk, sk, qp, sp
     # the INT8 scatter's staged rows are quantized fresh values, so that the
     # rows of a run differ (the gather's codes repeat with its ids); row 0
     # has an all-zero head (scale 0)
@@ -879,13 +893,11 @@ def swap_kernel_phase(torch):
         torch.cuda.empty_cache()
     for shape in SWAP_EDGE_POOLS:
         e = swap_edge_case(torch, gen, shape)
-        skipped = ("" if "swap_gather_pages_q8" in e else
-                   f" (the INT8 gather refuses {shape[3]} heads: its plain "
-                   "version's codes)")
+        torch.cuda.empty_cache()
         log(f"  swap kernels float32 {shape}, ids with a run of 3 equal real "
             "ids and 3 sink ids: bitwise equal to the plain versions, pages "
             "outside the ids unchanged, the last of each run written; max "
-            f"|kernel - plain| {max(e.values()):.3e}{skipped}")
+            f"|kernel - plain| {max(e.values()):.3e}")
         for name, v in e.items():
             worst[name] = max(worst[name], v)
     # the kernels line reports the timed case and the worst error over
@@ -978,6 +990,11 @@ def serve_phase(torch):
 
 # -- phases 6-8: swap, the INT8 host tier, disagg ------------------------------
 SWAP_KV_BLOCKS = 48     # 16 slots of up to 19 pages each: the pressure bites
+# the swap serves' requests all arrive at once, so the pressure bites
+# however fast a round runs: at phase 5's 0.02 s the compiled round
+# finishes requests before enough of them overlap to fill 48 blocks
+SWAP_FLAGS = ["--preemption-mode", "swap", "--kv-blocks", str(SWAP_KV_BLOCKS),
+              "--interval", "0"]
 
 
 def check_outputs(res, reqs, vocab_size):
@@ -995,21 +1012,10 @@ def check_outputs(res, reqs, vocab_size):
 
 
 def kernel_fns():
-    from repro_torch.kernels import swap as sw
-    from repro_torch.kernels.chunked_prefill_attention import (
-        chunked_prefill_attention)
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.fused_swiglu import fused_swiglu
-    from repro_torch.kernels.paged_decode_attention import (
-        paged_decode_attention, paged_decode_attention_fused)
-    from repro_torch.kernels.paged_prefill_attention import (
-        paged_prefill_attention, paged_prefill_attention_fused)
-    fns = {n: getattr(sw, n) for n in SWAP_KERNELS}
-    for fn in (paged_decode_attention, paged_prefill_attention,
-               paged_decode_attention_fused, paged_prefill_attention_fused,
-               chunked_prefill_attention, decode_attention, fused_swiglu):
-        fns[fn.__name__] = fn
-    return fns
+    """Every kernel wrapper, by name: each counts its launches, replayed
+    ones included."""
+    from repro_torch.engine.graphs import COUNTED
+    return {fn.__name__: fn for fn in COUNTED}
 
 
 def zero_launches() -> None:
@@ -1039,8 +1045,7 @@ def swap_serve_phase(torch, host_kv_dtype, baseline, layout="split"):
     from repro_torch.launch import serve as serve_cli
 
     args = serve_cli.build_parser().parse_args(
-        ["--full", "--kv-layout", layout, "--preemption-mode", "swap",
-         "--kv-blocks", str(SWAP_KV_BLOCKS)])
+        ["--full", "--kv-layout", layout] + SWAP_FLAGS)
     engine, sched, kv_pool, reqs = serve_cli.build(
         args, host_kv_dtype=host_kv_dtype)               # binds + warms up
     torch.cuda.synchronize()
@@ -1840,17 +1845,14 @@ def dense_serve_phase(torch, baseline, swap=False):
     """``serve --full --dense-kv`` (static budget, recompute): every request
     finishes, ``chunked_prefill_attention`` runs exactly once per layer per
     round -- every bucket, C = 1 included -- and no paged attention kernel
-    runs.  With ``swap``: ``--preemption-mode swap --kv-blocks 48``, where
+    runs.  With ``swap``: ``SWAP_FLAGS``, where
     swap-outs happen and are all restored through plain slot-row copies, no
     swap kernel launches, nothing stays staged and the pool's invariants
     hold."""
     from repro_torch.engine.engine import serve
     from repro_torch.launch import serve as serve_cli
 
-    flags = ["--full", "--dense-kv"]
-    if swap:
-        flags += ["--preemption-mode", "swap", "--kv-blocks",
-                  str(SWAP_KV_BLOCKS)]
+    flags = ["--full", "--dense-kv"] + (SWAP_FLAGS if swap else [])
     args = serve_cli.build_parser().parse_args(flags)
     engine, sched, kv_pool, reqs = serve_cli.build(args)  # binds + warms up
     cfg = engine.model_cfg
@@ -2010,6 +2012,315 @@ def granite_serve_phase(torch):
         f"; output tok/s {len(toks) / res.wall_s:.1f}")
     log(f"  kernel launches: { {n: c for n, c in launches.items() if c} }")
     del engine, kv_pool
+
+
+# -- phase 21: the compiled round ---------------------------------------------
+LAYOUT_FLAGS = {"split": [], "fused": ["--kv-layout", "fused"],
+                "dense": ["--dense-kv"]}
+# the bitwise engines' context: 1,056 keys of pages a slot, so a decode
+# round merges three splits of 512 keys
+GRAPH_MAX_CONTEXT = 1024
+GRAPH_PAIRS = 3         # interleaved graph / eager serve pairs, split
+DRAWS = 8               # replays of one sampled round
+
+
+def graph_pool_bytes(torch, engine) -> int:
+    """Bytes of the segments in the engine's graph memory pool."""
+    pool = tuple(engine._graph_pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def round_arrays(gen, B, C, lens, max_len, vocab):
+    """One round's packed inputs (tokens (B, C), chunk lengths, use_last,
+    sample_mask, as ``TorchEngine._inputs`` packs them): slot 0 idle, slots
+    1-2 decodes from ``last_token``, slots 3-4 decodes of a staged id, the
+    rest chunks of 1..C tokens (1 at C = 1), none past ``max_len``;
+    decodes and every other chunk sampled."""
+    import numpy as np
+    chunk = gen.integers(1, C + 1, B)
+    chunk[0], chunk[1:5] = 0, 1
+    chunk = np.minimum(chunk, max_len - lens).astype(np.int32)
+    tokens = np.zeros((B, C), np.int32)
+    for b in range(B):
+        tokens[b, :chunk[b]] = gen.integers(1, vocab, chunk[b])
+    use_last = np.zeros(B, np.int32)
+    use_last[1:3] = 1
+    tokens[1:3, 0] = 0
+    sample = np.zeros(B, np.int32)
+    sample[1:5] = 1
+    sample[5::2] = 1
+    sample[chunk == 0] = 0
+    return np.concatenate([tokens.reshape(-1), chunk, use_last, sample]), chunk
+
+
+def bitwise_round_case(torch, layout):
+    """Two full-width engines of ``layout`` from the same seed, one with
+    CUDA graphs and one eager, given one state (the same random K/V in
+    every page or row, permuted block tables, ragged lengths up to 560 of
+    1,024, random ``last_token``): at every bucket, and at C = 1 again at
+    the end (lengths past 1,024: three decode splits merged), one replay
+    against one eager ``_step`` on the same inputs; the sampled ids,
+    ``lens``, ``last_token`` and every cache tensor must agree BITWISE.
+    Returns (graphs captured, warm-up s of the graph engine, capture s,
+    pool bytes)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.engine.engine import TorchEngine
+    from repro_torch.launch import serve as serve_cli
+
+    args = serve_cli.build_parser().parse_args(["--full"]
+                                               + LAYOUT_FLAGS[layout])
+    cfg = serve_cli._model_cfg(args)
+    ecfg = dataclasses.replace(serve_cli._engine_cfg(args),
+                               max_context=GRAPH_MAX_CONTEXT)
+    engines, warm_s = [], []
+    for on in (True, False):
+        t0 = time.perf_counter()
+        eng = TorchEngine(cfg, ecfg, device="cuda", cuda_graphs=on)
+        eng.warmup()
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+        engines.append(eng)
+    g, e = engines
+    require(len(g.graphs) == len(ecfg.chunk_buckets) and not e.graphs,
+            f"{layout}: {len(g.graphs)} graphs captured for "
+            f"{len(ecfg.chunk_buckets)} buckets, {len(e.graphs)} eager")
+    require(same_bits(g.params["embed"], e.params["embed"]),
+            f"{layout}: the two engines' seeded weights differ")
+    B = ecfg.n_slots
+    gen = np.random.default_rng(21)
+    tgen = torch.Generator(device="cuda").manual_seed(21)
+    for name, cache in g.cache.items():
+        for l in range(cache.shape[0]):
+            vals = torch.randn(cache.shape[1:], generator=tgen, device="cuda",
+                               dtype=cache.dtype)
+            cache[l].copy_(vals)
+            e.cache[name][l].copy_(vals)
+    lens = gen.integers(0, 561, B).astype(np.int32)
+    lens[0], lens[1], lens[2] = 0, 540, 515
+    if layout != "dense":
+        tables = gen.permutation(g._n_phys - 1)[: B * g.max_pages]
+        for eng in engines:
+            eng._bt_host[:] = tables.reshape(B, g.max_pages)
+            eng._bt_len[:] = g.max_pages
+            eng._copy_in(eng.block_tables, eng._bt_host)
+    last = gen.integers(1, cfg.vocab_size, B).astype(np.int32)
+    for eng in engines:
+        eng._copy_in(eng.lens, lens)
+        eng._copy_in(eng.last_token, last)
+    for C in ecfg.chunk_buckets + (1,):
+        arr, chunk = round_arrays(gen, B, C, lens, GRAPH_MAX_CONTEXT,
+                                  cfg.vocab_size)
+        g._copy_in(g._inputs(C), arr)
+        got = g.graphs[C].replay()
+        e._copy_in(e._inputs(C), arr)
+        want = e._packed_step(e._inputs(C), C)
+        lens = lens + chunk
+        for what, a, b in (("sampled ids", got[0], want[0]),
+                           ("lens", g.lens, e.lens),
+                           ("last_token", g.last_token, e.last_token)):
+            require(same_bits(a, b),
+                    f"{layout} C={C}: the replay's {what} differ from the "
+                    "eager step's")
+        for name in g.cache:
+            require(same_bits(g.cache[name], e.cache[name]),
+                    f"{layout} C={C}: cache[{name!r}] differs from the "
+                    "eager step's")
+        require(bool((g.lens.cpu().numpy() == lens).all()),
+                f"{layout} C={C}: lens {g.lens.tolist()} != {lens.tolist()}")
+    torch.cuda.synchronize()
+    out = (len(g.graphs), warm_s[0], warm_s[1],
+           sum(gr.capture_s for gr in g.graphs.values()),
+           graph_pool_bytes(torch, g))
+    del g, e, engines
+    torch.cuda.empty_cache()
+    return out
+
+
+def sampled_replays(torch):
+    """``temperature=1.0`` at full width, split, with graphs: the sampler's
+    generator is registered with each graph, so DRAWS replays of one idle
+    round (nothing written, ``lens`` and ``last_token`` unchanged) draw
+    DRAWS different rows of ids, not one frozen draw.  Returns the number
+    of distinct rows."""
+    import numpy as np
+    from repro_torch.engine.engine import EngineConfig, TorchEngine
+    from repro_torch.engine.sampler import SamplerConfig
+    from repro_torch.launch import serve as serve_cli
+
+    args = serve_cli.build_parser().parse_args(["--full"])
+    cfg = serve_cli._model_cfg(args)
+    eng = TorchEngine(cfg, EngineConfig(
+        n_slots=16, max_context=512, sampler=SamplerConfig(temperature=1.0)),
+        device="cuda")
+    eng.warmup()
+    require(len(eng.graphs) == len(eng.cfg.chunk_buckets),
+            f"sampling engine: {len(eng.graphs)} graphs")
+    idle = np.zeros(eng._inputs(1).numel(), np.int32)
+    lens0, last0 = eng.lens.clone(), eng.last_token.clone()
+    draws = []
+    for _ in range(DRAWS):
+        eng._copy_in(eng._inputs(1), idle)
+        draws.append(eng.graphs[1].replay()[0].clone())
+    torch.cuda.synchronize()
+    rows = {tuple(d.tolist()) for d in draws}
+    require(all(0 <= t < cfg.vocab_size for r in rows for t in r),
+            "a sampled id is outside the vocabulary")
+    require(same_bits(eng.lens, lens0) and same_bits(eng.last_token, last0),
+            "an idle round changed lens or last_token")
+    require(len(rows) == DRAWS,
+            f"{DRAWS} replays of one sampled round drew {len(rows)} distinct "
+            "rows of ids (a frozen draw repeats)")
+    del eng
+    torch.cuda.empty_cache()
+    return len(rows)
+
+
+def build_served(torch, layout, cuda_graphs):
+    """What ``serve_cli.build`` does for ``--full`` and ``layout`` (no
+    LPRS), with or without CUDA graphs: (engine, pool, args)."""
+    from repro_torch.engine.engine import TorchEngine
+    from repro_torch.engine.kv_cache import pool_for_model
+    from repro_torch.launch import serve as serve_cli
+
+    args = serve_cli.build_parser().parse_args(["--full"]
+                                               + LAYOUT_FLAGS[layout])
+    cfg = serve_cli._model_cfg(args)
+    engine = TorchEngine(cfg, serve_cli._engine_cfg(args), device="cuda",
+                         cuda_graphs=cuda_graphs)
+    kv_pool = pool_for_model(cfg, n_blocks=args.kv_blocks)
+    engine.bind_kv_pool(kv_pool)
+    engine.warmup()
+    torch.cuda.synchronize()
+    return engine, kv_pool, args
+
+
+def timed_serve(torch, engine, kv_pool, args):
+    """Phase 5's serve on a built engine, then the pool reset for the next:
+    its metrics, the host ms per round spent in ``schedule()``, in the
+    engine's input copies (block tables and the packed round) and in
+    ``dispatch`` as a whole, the round's span on the device (CUDA events
+    before and after each dispatch: from the end of the work before it to
+    the end of the round's copies and step; its device time where one
+    launch enqueues it, as a graph's replay, and the host's enqueue time
+    where the host is the slower, as eagerly), and the greedy outputs."""
+    from repro_torch.engine.engine import serve
+    from repro_torch.launch import serve as serve_cli
+
+    sched = serve_cli.build_scheduler(args)
+    reqs = serve_cli.workload(args, engine.model_cfg)
+    spent = {"schedule": 0.0, "copy_in": 0.0, "dispatch": 0.0}
+
+    def timed(key, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    events = []
+
+    def on_device(fn):
+        def call(batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(batch)
+            end.record()
+            events.append((start, end))
+            return out
+        return call
+
+    sched.schedule = timed("schedule", sched.schedule)
+    engine._copy_in = timed("copy_in", engine._copy_in)
+    engine.dispatch = on_device(timed("dispatch", engine.dispatch))
+    engine.enqueue_ms.clear()
+    torch.cuda.synchronize()
+    try:
+        res = serve(reqs, sched, engine, kv_pool=kv_pool)
+        torch.cuda.synchronize()
+    finally:
+        del engine._copy_in, engine.dispatch
+    toks = check_outputs(res, reqs, engine.model_cfg.vocab_size)
+    kv_pool.reset()
+    rep = res.report
+    per_round = {k: v * 1e3 / res.rounds for k, v in spent.items()}
+    device_ms = sum(a.elapsed_time(b) for a, b in events)
+    return {"tok_s": len(toks) / res.wall_s,
+            "ttft_ms": rep.ttft["mean"] * 1e3,
+            "p99_e2e_ms": rep.e2e["p99"] * 1e3,
+            "bubble_ms": statistics.mean(res.host_bubble_ms),
+            "enqueue_ms": statistics.mean(engine.enqueue_ms),
+            "rounds": res.rounds, "wall_s": res.wall_s,
+            "span_ms": device_ms / res.rounds,
+            "span_share": device_ms / (res.wall_s * 1e3),
+            **{f"{k}_ms": v for k, v in per_round.items()},
+            "outputs": [res.outputs[r.req_id] for r in reqs]}
+
+
+def spread(xs) -> str:
+    return (f"{statistics.mean(xs):.3f} (min {min(xs):.3f} max "
+            f"{max(xs):.3f})")
+
+
+def serve_pairs(torch, layout, n_pairs):
+    """``n_pairs`` interleaved pairs (graph, eager, eager, graph, ...) of
+    phase 5's serve on the ``layout`` engine built both ways; prints each
+    metric's mean and range per side and how many requests' greedy tokens
+    agree (not gated: the pipelined loop's rounds depend on timing, so bf16
+    batches may differ).  Returns the runs by side."""
+    built = {on: build_served(torch, layout, on) for on in (True, False)}
+    runs = {True: [], False: []}
+    for i in range(n_pairs):
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            runs[on].append(timed_serve(torch, *built[on]))
+    for on in (True, False):
+        r = runs[on]
+        log(f"  {layout} {'graph' if on else 'eager'} x{len(r)}: output "
+            f"tok/s {spread([x['tok_s'] for x in r])}; mean TTFT ms "
+            f"{spread([x['ttft_ms'] for x in r])}; P99 E2E ms "
+            f"{spread([x['p99_e2e_ms'] for x in r])}; mean bubble_ms "
+            f"{spread([x['bubble_ms'] for x in r])}; mean enqueue_ms "
+            f"{spread([x['enqueue_ms'] for x in r])}")
+        log(f"    per round, host ms: schedule() "
+            f"{spread([x['schedule_ms'] for x in r])}; input copies "
+            f"{spread([x['copy_in_ms'] for x in r])}; dispatch "
+            f"{spread([x['dispatch_ms'] for x in r])}; device span ms "
+            f"{spread([x['span_ms'] for x in r])}; wall ms "
+            f"{spread([x['wall_s'] * 1e3 / x['rounds'] for x in r])}; "
+            f"spans {spread([x['span_share'] for x in r])} of the wall; "
+            f"rounds {[x['rounds'] for x in r]}")
+    same = sum(a == b for a, b in zip(runs[True][0]["outputs"],
+                                      runs[False][0]["outputs"]))
+    log(f"  {layout}: greedy outputs of the first graph serve equal to the "
+        f"first eager serve's for {same} of {len(runs[True][0]['outputs'])} "
+        "requests (printed, not gated: bf16)")
+    del built
+    torch.cuda.empty_cache()
+    return runs
+
+
+def compiled_round_phase(torch):
+    """Phase 21: the replayed round bitwise against the eager step at every
+    bucket on split, fused and dense; the graphs per engine; a sampled
+    round's replays drawing afresh; serve pairs with and without graphs."""
+    for layout in ("split", "fused", "dense"):
+        n, warm_g, warm_e, cap_s, pool = bitwise_round_case(torch, layout)
+        log(f"  {layout}: replays bitwise equal to the eager step at every "
+            "bucket and at C=1 again (three decode splits merged): sampled "
+            f"ids, lens, last_token, every cache tensor; {n} graphs "
+            f"captured, warm-up {warm_g:.2f} s with graphs ({cap_s:.2f} s "
+            f"in the captures) against {warm_e:.2f} s eager; graph pool "
+            f"{pool} B")
+    n = sampled_replays(torch)
+    log(f"  temperature 1.0: {DRAWS} replays of one idle round drew {n} "
+        "distinct rows of 16 ids (the generator advances per replay)")
+    serve_pairs(torch, "split", GRAPH_PAIRS)
+    serve_pairs(torch, "fused", 1)
+    serve_pairs(torch, "dense", 1)
 
 
 # -- --turns: the attention and SwiGLU kernels of two trees in turns ----------
@@ -2220,8 +2531,7 @@ def main() -> int:
     log("== serve (python -m repro_torch.launch.serve --full)")
     engine, launches, baseline = serve_phase(torch)
 
-    log(f"== serve, swap (--full --preemption-mode swap --kv-blocks "
-        f"{SWAP_KV_BLOCKS})")
+    log(f"== serve, swap (--full {' '.join(SWAP_FLAGS)})")
     swap_launches = swap_serve_phase(torch, "auto", baseline)
     torch.cuda.empty_cache()
     log("== serve, INT8 host tier (the same, pool_for_model(..., "
@@ -2247,8 +2557,8 @@ def main() -> int:
     log("== serve, fused (--full --kv-layout fused)")
     fused_engine, fused_pool, fused_launches, static = fused_serve_phase(
         torch, baseline)
-    log(f"== serve, fused swap (--full --kv-layout fused --preemption-mode "
-        f"swap --kv-blocks {SWAP_KV_BLOCKS})")
+    log(f"== serve, fused swap (--full --kv-layout fused "
+        f"{' '.join(SWAP_FLAGS)})")
     swap_serve_phase(torch, "auto", baseline, layout="fused")
     torch.cuda.empty_cache()
     log("== LPRS (--full --kv-layout fused --policy aging --lprs --apc)")
@@ -2269,8 +2579,7 @@ def main() -> int:
     log("== serve, dense (--full --dense-kv)")
     dense_launches = dense_serve_phase(torch, baseline)
     torch.cuda.empty_cache()
-    log(f"== serve, dense swap (--full --dense-kv --preemption-mode swap "
-        f"--kv-blocks {SWAP_KV_BLOCKS})")
+    log(f"== serve, dense swap (--full --dense-kv {' '.join(SWAP_FLAGS)})")
     dense_serve_phase(torch, baseline, swap=True)
     torch.cuda.empty_cache()
     for layout in ("split", "fused", "dense"):
@@ -2285,6 +2594,9 @@ def main() -> int:
         f"decode group 48)")
     granite_serve_phase(torch)
     torch.cuda.empty_cache()
+
+    log("== the compiled round: CUDA graphs against the eager step")
+    compiled_round_phase(torch)
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/paged_decode_attention.py:249",

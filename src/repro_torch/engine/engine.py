@@ -19,10 +19,13 @@ the A/B layout):
     slots advance by 1 token, prefill slots by their scheduled chunk, idle
     slots by 0 -- under bucketed chunk shapes, then samples and keeps the
     sampled ids in a device-resident ``last_token`` tensor that the NEXT
-    round consumes directly.  The step is one Python call per round but,
-    run eagerly, many kernel launches (per layer: norm, projections, RoPE,
-    KV scatter, attention, output projection, FFN); ``bubble_ms`` records
-    the host gap before each dispatch.
+    round consumes directly.  The step is many kernel launches (per layer:
+    norm, projections, RoPE, KV scatter, attention, output projection,
+    FFN); on a card each chunk bucket's step is captured once as a CUDA
+    graph (``engine/graphs.py``, the counterpart of the JAX engine's
+    ``jax.jit``) and a round is one replay, its inputs copied into the
+    bucket's fixed buffer first.  ``bubble_ms`` records the host gap before
+    each dispatch.
   * PIPELINED serving (``EngineConfig(pipelined=True)``, the default): the
     host schedules round N+1 while the device runs round N; the sampled ids
     come back through an async copy into a pinned buffer owned by the round
@@ -59,6 +62,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.request import Request, RequestState
 from repro_torch.core.scheduler import ChunkedPrefillScheduler, ScheduledBatch
+from repro_torch.engine import graphs
 from repro_torch.engine.costmodel import CostModel, CostModelConfig
 from repro_torch.engine.kv_cache import KVBlockPool, KVPoolConfig, PAGED_RESIDENT
 from repro_torch.engine.metrics import (
@@ -202,7 +206,10 @@ class TorchEngine:
 
     def __init__(self, model_cfg: ModelConfig, cfg: Optional[EngineConfig] = None,
                  params=None, kv_pool: Optional[KVBlockPool] = None, *,
-                 device="cuda"):
+                 device="cuda", cuda_graphs: bool = True):
+        """``cuda_graphs=False`` runs every round of a card eagerly (the
+        A/B baseline of the compiled round); on the CPU rounds always run
+        eagerly."""
         self.cfg = cfg or EngineConfig()
         assert self.cfg.kv_layout in ("split", "fused"), self.cfg.kv_layout
         assert self.cfg.paged_kv or self.cfg.kv_layout == "split", (
@@ -218,6 +225,15 @@ class TorchEngine:
         self.params = params
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed + 1)
+        # the compiled round: one RoundGraph per chunk bucket, all in one
+        # memory pool (they never run at once), captured on a stream of
+        # this engine's own (the decode kernels' ticket buffer is per
+        # stream); each bucket's packed inputs live in a fixed buffer
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self.graphs: Dict[int, graphs.RoundGraph] = {}
+        self._graph_pool = None
+        self._capture_stream = None
+        self._round_inputs: Dict[int, torch.Tensor] = {}
 
         B = self.cfg.n_slots
         self.slot_of: Dict[int, int] = {}          # req_id -> slot
@@ -267,6 +283,11 @@ class TorchEngine:
 
     # -- physical KV layout ----------------------------------------------------
     def _build_state(self) -> None:
+        """Allocate the KV storage, ``lens``, ``last_token`` and the block
+        tables for the bound pool, and drop every captured graph: they read
+        the storage this replaces."""
+        self.graphs.clear()
+        self._graph_pool = None
         cfg, model_cfg = self.cfg, self.model_cfg
         B, S = cfg.n_slots, cfg.max_context
         hd = model_cfg.resolved_head_dim
@@ -281,12 +302,15 @@ class TorchEngine:
             self.max_pages = math.ceil(S / bs) + 1
             n_kv = model_cfg.n_kv_heads * (2 if cfg.kv_layout == "fused" else 1)
             kv_shape = (model_cfg.n_layers, self._n_phys, bs, n_kv, hd)
-            # device-resident block tables; _bt_host mirrors exactly what the
-            # device holds, _bt_len tracks per-slot entries already uploaded
+            # device-resident block tables, one buffer rewritten in place
+            # (the graphs read it); _bt_host mirrors exactly what the device
+            # holds, _bt_len tracks per-slot entries already uploaded
             self._bt_host = np.full((B, self.max_pages), self._sink, np.int32)
             self._bt_len = np.zeros((B,), np.int32)
             self._bt_dirty: set = set()
-            self.block_tables = self._upload(self._bt_host)
+            self.block_tables = torch.empty((B, self.max_pages),
+                                            dtype=torch.int32, device=dev)
+            self._copy_in(self.block_tables, self._bt_host)
         else:
             # one row per slot and position, plus a sink row per slot for
             # padding lanes (never attended: the step reads cache[:, :-1])
@@ -306,13 +330,23 @@ class TorchEngine:
         layout stores ONE head-interleaved pool, split stores two."""
         return ("kv",) if self.cfg.kv_layout == "fused" else ("k", "v")
 
+    def _copy_in(self, dst: torch.Tensor, arr: np.ndarray) -> torch.Tensor:
+        """Host numpy -> the device tensor ``dst``, in place, ordered on the
+        stream after the work already enqueued there.  On a card the bytes
+        go through a fresh pinned buffer from PyTorch's caching host
+        allocator, which does not hand that buffer out again until the copy
+        has completed -- so the caller may mutate ``arr`` at once and the
+        copy never waits for the stream (a pageable blocking copy would sync
+        the stream and serialise the pipelined loop)."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return dst.copy_(src)
+        pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        pinned.copy_(src)
+        return dst.copy_(pinned, non_blocking=True)
+
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Host numpy -> a NEW device tensor.  On a card the bytes go through
-        a fresh pinned buffer from PyTorch's caching host allocator, which
-        does not hand that buffer out again until the copy has completed --
-        so the caller may mutate ``arr`` at once and the copy never waits
-        for the stream (a pageable blocking copy would sync the stream and
-        serialise the pipelined loop)."""
+        """Host numpy -> a NEW device tensor, as ``_copy_in`` copies."""
         src = torch.from_numpy(np.ascontiguousarray(arr))
         if self.device.type != "cuda":
             return src.clone()
@@ -328,9 +362,8 @@ class TorchEngine:
                                if not e.query()]
             self._uploading.append((src, done))
             return out
-        pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-        pinned.copy_(src)
-        return pinned.to(self.device, non_blocking=True)
+        return self._copy_in(torch.empty(src.shape, dtype=src.dtype,
+                                         device=self.device), arr)
 
     def _step(self, tokens, chunk_lens, use_last, sample_mask):
         """Forward + sampling + length update + device token feedback for one
@@ -359,6 +392,52 @@ class TorchEngine:
         if self.cfg.nan_guard:
             return toks, torch.isfinite(logits).all(dim=-1)
         return (toks,)
+
+    def _inputs(self, C: int) -> torch.Tensor:
+        """Bucket ``C``'s fixed input buffer: the round's token ids (B, C),
+        chunk lengths, ``use_last`` and ``sample_mask``, packed as int32 so
+        that one copy fills it (its graph reads it where it lies)."""
+        buf = self._round_inputs.get(C)
+        if buf is None:
+            B = self.cfg.n_slots
+            buf = torch.zeros((B * C + 3 * B,), dtype=torch.int32,
+                              device=self.device)
+            self._round_inputs[C] = buf
+        return buf
+
+    def _packed_step(self, packed: torch.Tensor, C: int):
+        """``_step`` on the round packed in ``packed`` (see ``_inputs``)."""
+        B = self.cfg.n_slots
+        return self._step(packed[: B * C].view(B, C),
+                          packed[B * C: B * C + B],
+                          packed[B * C + B: B * C + 2 * B].bool(),
+                          packed[B * C + 2 * B:].bool())
+
+    def capture(self, C: int) -> graphs.RoundGraph:
+        """Capture bucket ``C``'s round as a CUDA graph.  First one eager
+        round on the capture stream builds and loads the kernel libraries,
+        allocates the decode kernels' ticket buffer for that stream and
+        settles cuBLAS; it is an idle round (every lane masked), which
+        writes zeros into the sinks only and leaves ``lens`` and
+        ``last_token`` as they were, so a bucket first met mid-serve
+        captures without disturbing the requests in flight."""
+        packed = self._inputs(C)
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        packed.zero_()
+        torch.cuda.synchronize(self.device)
+        with torch.cuda.stream(self._capture_stream):
+            self._packed_step(packed, C)
+        torch.cuda.synchronize(self.device)
+        sampling = self.cfg.sampler.temperature > 0.0
+        graph = graphs.capture(lambda: self._packed_step(packed, C),
+                               pool=self._graph_pool,
+                               stream=self._capture_stream,
+                               generator=self._gen if sampling else None)
+        self.graphs[C] = graph
+        return graph
 
     def bind_kv_pool(self, kv_pool: Optional[KVBlockPool]) -> None:
         """Adopt the serve loop's shared pool: the physical page array is
@@ -390,8 +469,10 @@ class TorchEngine:
         """Run every chunk bucket once so serving rounds see steady-state
         latencies: the first round of each shape builds the CUDA kernels
         (nvcc, at first use), loads cuBLAS and settles the caching
-        allocator.  The dummy rounds write only into the sink page (paged),
-        or slot 0's first row (dense), which its next owner writes before
+        allocator; with ``cuda_graphs`` each bucket's round is captured
+        (``capture``), as the JAX engine's warm-up compiles each bucket.
+        The eager dummy rounds write only into the sink page (paged), or
+        slot 0's first row (dense), which its next owner writes before
         reading; ``lens`` is reset afterwards.  When a paged engine can swap
         (``preemption_mode="swap"``) or the caller says it will export/import
         KV (``include_swap=True``, the disagg handoff path, which rides the
@@ -402,6 +483,10 @@ class TorchEngine:
         chunk_lens = torch.zeros((B,), dtype=torch.int32, device=self.device)
         chunk_lens[0] = 1
         for C in self.cfg.chunk_buckets:
+            if self.cuda_graphs:
+                if C not in self.graphs:
+                    self.capture(C)
+                continue
             tokens = torch.ones((B, C), dtype=torch.int32, device=self.device)
             self._step(tokens, chunk_lens, off, off)
         self.lens.zero_()
@@ -785,7 +870,7 @@ class TorchEngine:
                 self._bt_dirty.add(slot)
             self._bt_len[slot] = n
         if self._bt_dirty:
-            self.block_tables = self._upload(self._bt_host)
+            self._copy_in(self.block_tables, self._bt_host)
             self._bt_dirty.clear()
 
     def _stage(self, batch: ScheduledBatch):
@@ -829,28 +914,32 @@ class TorchEngine:
 
     def dispatch(self, batch: ScheduledBatch) -> InflightRound:
         """Stage and launch one round WITHOUT waiting for it: the step
-        (forward + sampling + length update) is enqueued while the caller
-        goes back to scheduling.  The sampled-token readback (with the
-        finite mask under ``nan_guard``) starts as an async device->host
-        copy; ``drain`` collects it one round later."""
+        (forward + sampling + length update) is enqueued -- one replay of
+        the bucket's graph, or eagerly -- while the caller goes back to
+        scheduling.  The sampled-token readback (with the finite mask under
+        ``nan_guard``) starts as an async device->host copy of the step's
+        outputs, enqueued before any later round can overwrite them;
+        ``drain`` collects it one round later."""
         tokens, chunk_lens, use_last, sample_mask, sampled = self._stage(batch)
-        B, C = tokens.shape
+        C = tokens.shape[1]
         if self.cfg.paged_kv:
             self._sync_block_tables(batch)
-        # one upload for the round's four small arrays, into a buffer of its
-        # own (the numpy arrays are fresh each round, the device copy too)
-        packed = self._upload(np.concatenate([
+        graph = None
+        if self.cuda_graphs:
+            # a bucket met before any warm-up is captured now, as jax.jit
+            # compiles at the first call (before its inputs are copied in:
+            # the capture runs an idle round on the same buffer)
+            graph = self.graphs.get(C) or self.capture(C)
+        # one copy for the round's four small arrays into the bucket's
+        # fixed buffer (stream-ordered after the round that last read it)
+        packed = self._copy_in(self._inputs(C), np.concatenate([
             tokens.reshape(-1), chunk_lens,
             use_last.astype(np.int32), sample_mask.astype(np.int32)]))
-        d_tokens = packed[: B * C].view(B, C)
-        d_chunk_lens = packed[B * C: B * C + B]
-        d_use_last = packed[B * C + B: B * C + 2 * B].bool()
-        d_sample_mask = packed[B * C + 2 * B:].bool()
         t_dispatch = time.perf_counter()
         if self._t_ready is not None:
             self.bubble_ms.append((t_dispatch - self._t_ready) * 1e3)
-        toks = HostCopy(
-            self._step(d_tokens, d_chunk_lens, d_use_last, d_sample_mask))
+        toks = HostCopy(graph.replay() if graph is not None
+                        else self._packed_step(packed, C))
         self.enqueue_ms.append((time.perf_counter() - t_dispatch) * 1e3)
         self.bucket_rounds[C] = self.bucket_rounds.get(C, 0) + 1
         return InflightRound(toks=toks, sampled=sampled, t_dispatch=t_dispatch)

@@ -17,10 +17,15 @@ class SamplerConfig:
 def sample_tokens(logits, gen: Optional[torch.Generator], cfg: SamplerConfig):
     """logits: (B, V) -> (B,) int32 tokens.  Greedy is ``argmax`` (the first
     index on ties, as ``jnp.argmax``).  Temperature and top-k draw from
-    ``gen``; they match the JAX sampler in distribution, not draw for draw."""
+    ``gen``; they match the JAX sampler in distribution, not draw for draw.
+    A row with a non-finite logit (an idle lane under the plain attention,
+    a poisoned request under the NaN guard; the engine discards both ids)
+    draws from the uniform distribution: ``torch.multinomial`` refuses a
+    NaN probability, where ``jax.random.categorical`` draws regardless."""
     if cfg.temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    logits = logits.float() / cfg.temperature
+    finite = torch.isfinite(logits).all(dim=-1, keepdim=True)
+    logits = torch.where(finite, logits.float(), 0.0) / cfg.temperature
     if cfg.top_k > 0:
         kth = torch.topk(logits, cfg.top_k, dim=-1).values[..., -1:]
         logits = logits.masked_fill(logits < kth, -float("inf"))

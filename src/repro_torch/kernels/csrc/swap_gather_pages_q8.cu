@@ -40,7 +40,8 @@
 // A head whose page_size * hd elements exceed kMaxStageBytes cannot stage
 // kStages-deep in shared memory; such shapes (none that the engine builds)
 // take gather_q8_two_pass_kernel, which reads the page twice, the second
-// time mostly from L2.
+// time mostly from L2, a CTA per block of kHeadBlock heads.  Both kernels
+// take any H.
 #include "hopper_common.cuh"
 #include "swap_pages_common.cuh"
 
@@ -51,6 +52,7 @@ constexpr int kStageBytes = 32768;     // a stage holds this many bytes of heads
 constexpr int kStages = 2;
 constexpr int kMaxStageBytes = 110592; // one head's rows at most
 constexpr int kCtasPerSm = 3;
+constexpr int kHeadBlock = 256;        // heads a two-pass CTA takes
 static_assert(kStages * kMaxStageBytes + 1024 <= 232448,
               "the ring fits a CTA's shared memory on an H100");
 
@@ -228,44 +230,54 @@ gather_q8_kernel(const Q8Args a) {
   }
 }
 
-// Shapes whose head does not fit a stage: one CTA per (page, layer), the
-// page read twice.  Pass 1 keeps a running |x| max per thread for the head
-// it is on and folds it into the head's shared max with atomicMax on the
-// float's bits (valid: every value is >= 0); pass 2 reads the page again
-// and writes the codes, 8 (bf16) or 4 (f32) per store.
+// Shapes whose head does not fit a stage: one CTA per (page, block of up to
+// kHeadBlock heads, layer), its heads' rows read twice.  Pass 1 keeps a
+// running |x| max per thread for the head it is on and folds it into the
+// head's shared max with atomicMax on the float's bits (valid: every value
+// is >= 0); pass 2 reads the rows again and writes the codes, 8 (bf16) or 4
+// (f32) per store.  Blocking the heads keeps the shared arrays fixed
+// whatever H is; with H <= kHeadBlock a CTA takes the whole page.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) gather_q8_two_pass_kernel(
     const T* __restrict__ pages,       // (L, n_phys, page_size, H, hd)
     const int* __restrict__ ids,       // (n,)
     int8_t* __restrict__ q,            // (L, n, page_size, H, hd)
     float* __restrict__ scales,        // (L, n, 1, H, 1)
-    int n_phys, int n, int page_size, int n_heads, int hd) {
+    int n_phys, int n, int page_size, int n_heads, int hd, int n_hblk) {
   constexpr int kVec = 16 / sizeof(T);
-  __shared__ unsigned amax_bits[kMaxHeads];
-  __shared__ float safe_s[kMaxHeads];
+  __shared__ unsigned amax_bits[kHeadBlock];
+  __shared__ float safe_s[kHeadBlock];
 
-  const int i = blockIdx.x, l = blockIdx.y;
+  const int i = blockIdx.x / n_hblk, l = blockIdx.y;
+  const int h0 = (blockIdx.x % n_hblk) * kHeadBlock;
+  const int nh = min(kHeadBlock, n_heads - h0);
   const int id = __ldg(ids + i);
   const size_t page_elems = (size_t)page_size * n_heads * hd;
-  const size_t n_vec = page_elems / kVec;
   const int head_vecs = hd / kVec;
+  const size_t row_vecs = (size_t)n_heads * head_vecs;  // a token's row
+  const size_t blk_vecs = (size_t)nh * head_vecs;       // its heads h0.. of it
+  const size_t n_vec = (size_t)page_size * blk_vecs;
   const size_t page_out = (size_t)l * n + i;
+  // vector v of the block is vector (v % blk_vecs) of the block's part of
+  // row v / blk_vecs
   const uint4* src = reinterpret_cast<const uint4*>(
-      pages + ((size_t)l * n_phys + id) * page_elems);
+                         pages + ((size_t)l * n_phys + id) * page_elems) +
+                     (size_t)h0 * head_vecs;
 
-  for (int h = threadIdx.x; h < n_heads; h += kThreads) amax_bits[h] = 0u;
+  for (int h = threadIdx.x; h < nh; h += kThreads) amax_bits[h] = 0u;
   __syncthreads();
 
   int cur = -1;
   float m = 0.f;
   for (size_t v = threadIdx.x; v < n_vec; v += kThreads) {
-    const int h = (int)((v / head_vecs) % n_heads);
+    const size_t s = v / blk_vecs, c = v - s * blk_vecs;
+    const int h = (int)(c / head_vecs);
     if (h != cur) {
       if (cur >= 0) atomicMax(&amax_bits[cur], __float_as_uint(m));
       cur = h;
       m = 0.f;
     }
-    const uint4 raw = __ldg(src + v);
+    const uint4 raw = __ldg(src + s * row_vecs + c);
     const T* x = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int e = 0; e < kVec; ++e) m = fmaxf(m, fabsf(to_float(x[e])));
@@ -273,23 +285,25 @@ __global__ void __launch_bounds__(kThreads) gather_q8_two_pass_kernel(
   if (cur >= 0) atomicMax(&amax_bits[cur], __float_as_uint(m));
   __syncthreads();
 
-  for (int h = threadIdx.x; h < n_heads; h += kThreads) {
+  for (int h = threadIdx.x; h < nh; h += kThreads) {
     const float scale = __uint_as_float(amax_bits[h]) / 127.f;
-    scales[page_out * n_heads + h] = scale;
+    scales[page_out * n_heads + h0 + h] = scale;
     safe_s[h] = scale > 0.f ? scale : 1.f;
   }
   __syncthreads();
 
-  CodeWord<T>* dst = reinterpret_cast<CodeWord<T>*>(q + page_out * page_elems);
+  CodeWord<T>* dst = reinterpret_cast<CodeWord<T>*>(q + page_out * page_elems) +
+                     (size_t)h0 * head_vecs;
   for (size_t v = threadIdx.x; v < n_vec; v += kThreads) {
-    const float safe = safe_s[(v / head_vecs) % n_heads];
-    const uint4 raw = __ldg(src + v);
+    const size_t s = v / blk_vecs, c = v - s * blk_vecs;
+    const float safe = safe_s[c / head_vecs];
+    const uint4 raw = __ldg(src + s * row_vecs + c);
     const T* x = reinterpret_cast<const T*>(&raw);
     CodeWord<T> word;
-    int8_t* c = reinterpret_cast<int8_t*>(&word);
+    int8_t* code = reinterpret_cast<int8_t*>(&word);
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) c[e] = quantize(to_float(x[e]), safe);
-    dst[v] = word;
+    for (int e = 0; e < kVec; ++e) code[e] = quantize(to_float(x[e]), safe);
+    dst[s * row_vecs + c] = word;
   }
 }
 
@@ -301,10 +315,13 @@ cudaError_t launch(const void* pages, const int* ids, void* q, void* scales,
   if (hd % kVec != 0 || page_size < 0) return cudaErrorInvalidValue;
   const long long col_bytes = (long long)page_size * hd * sizeof(T);
   if (col_bytes == 0 || col_bytes > kMaxStageBytes) {
-    if (L > 65535) return cudaErrorInvalidValue;
-    gather_q8_two_pass_kernel<T><<<dim3(n, L), kThreads, 0, stream>>>(
+    const int n_hblk = (n_heads + kHeadBlock - 1) / kHeadBlock;
+    if (L > 65535 || (long long)n * n_hblk > 0x7fffffffLL) {
+      return cudaErrorInvalidValue;
+    }
+    gather_q8_two_pass_kernel<T><<<dim3(n * n_hblk, L), kThreads, 0, stream>>>(
         static_cast<const T*>(pages), ids, static_cast<int8_t*>(q),
-        static_cast<float*>(scales), n_phys, n, page_size, n_heads, hd);
+        static_cast<float*>(scales), n_phys, n, page_size, n_heads, hd, n_hblk);
     return cudaGetLastError();
   }
   Q8Args a;
@@ -339,7 +356,7 @@ extern "C" int swap_gather_pages_q8(const void* pages, const void* ids,
                                     void* q, void* scales, int L, int n_phys,
                                     int n, int page_size, int n_heads, int hd,
                                     int dtype, void* stream) {
-  if (n_heads <= 0 || n_heads > swap::kMaxHeads || hd <= 0 || L < 0 || n < 0) {
+  if (n_heads <= 0 || hd <= 0 || L < 0 || n < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (L == 0 || n == 0) return 0;

@@ -3,11 +3,12 @@
 //
 // The page pool is (L, n_phys, page_size, H, hd) and the staging tensor (L,
 // n, page_size, H, hd), both contiguous, so one page is page_size * H * hd
-// contiguous elements.  The gather (and the INT8 gather's two-pass kernel)
-// run one CTA of kThreads per (page, layer), grid (n, L): a CTA reads its
-// own page id from `ids` (what the TPU kernels got by scalar prefetch) and
-// walks the page in 16-byte vectors, thread t on vectors t, t + kThreads,
-// ...: neighbouring threads on neighbouring addresses.  The scatter, the
+// contiguous elements.  The gather runs one CTA of kThreads per (page,
+// layer), grid (n, L): a CTA reads its own page id from `ids` (what the TPU
+// kernels got by scalar prefetch) and walks the page in 16-byte vectors,
+// thread t on vectors t, t + kThreads, ...: neighbouring threads on
+// neighbouring addresses.  The INT8 gather's two-pass kernel walks a block
+// of heads of the page the same way, a CTA per (page, head block).  The
 // INT8 gather and the INT8 scatter run persistent CTAs that stage pages in
 // shared memory by bulk copies (see their files).  The wrappers require
 // `hd * sizeof(T)` to be a multiple of 16, so a vector never straddles two
@@ -26,7 +27,6 @@
 namespace swap {
 
 constexpr int kThreads = 256;
-constexpr int kMaxHeads = 256;        // H per page the INT8 gather takes
 
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 

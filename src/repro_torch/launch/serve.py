@@ -421,8 +421,11 @@ def profiled(run, trace_path: str):
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     busy_ms = device_busy_ms(events)
+    n_kernels = sum(e.get("ph") == "X" and e.get("cat") == "kernel"
+                    for e in events)
     print(f"device busy {busy_ms:.1f} ms of {res.wall_s * 1e3:.1f} ms serve "
-          f"wall ({busy_ms / (res.wall_s * 1e3):.1%}); trace: {trace_path}")
+          f"wall ({busy_ms / (res.wall_s * 1e3):.1%}), {n_kernels} kernels; "
+          f"trace: {trace_path}")
     for kind, (ms, n, n_bytes) in sorted(swap_device_ms(events).items()):
         print(f"  {kind}: {ms:.3f} ms device time ({ms / busy_ms:.2%} of "
               f"busy) over {n} events, {n_bytes} B")

@@ -72,14 +72,22 @@ def rope_frequencies(head_dim: int, theta: float, device=None):
                                          device=device) / head_dim))
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (B, S, H, hd); positions: (B, S) int.  Split-half rotation: the
-    first and second halves of hd form the pairs (not interleaved)."""
-    hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, x.device)              # (hd/2,)
+def rope_tables(positions, head_dim: int, theta: float):
+    """(cos, sin) of the rotary angles at ``positions`` (B, S) int, each
+    (B, S, 1, head_dim / 2) f32: what ``apply_rope`` rotates by.  They
+    depend on the positions only, so a round computes them once for every
+    layer and for q and k alike."""
+    freqs = rope_frequencies(head_dim, theta, positions.device)  # (hd/2,)
     angles = positions[..., None].float() * freqs              # (B, S, hd/2)
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_rope(x, positions, theta: float, tables=None):
+    """x: (B, S, H, hd); positions: (B, S) int.  Split-half rotation: the
+    first and second halves of hd form the pairs (not interleaved).
+    ``tables`` is ``rope_tables(positions, hd, theta)``, computed here when
+    not given."""
+    cos, sin = tables or rope_tables(positions, x.shape[-1], theta)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -90,8 +98,11 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def qkv_project(p, x, cfg, positions=None, rope: bool = True):
-    """x: (B, S, D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with optional RoPE."""
+def qkv_project(p, x, cfg, positions=None, rope: bool = True,
+                rope_tabs=None):
+    """x: (B, S, D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with optional RoPE;
+    ``rope_tabs`` is ``rope_tables(positions, ...)`` when the caller has
+    them (the engine round computes them once for all layers)."""
     B, S, D = x.shape
 
     def proj(w):
@@ -103,8 +114,10 @@ def qkv_project(p, x, cfg, positions=None, rope: bool = True):
         k = k + p["bk"]
         v = v + p["bv"]
     if rope and positions is not None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if rope_tabs is None:
+            rope_tabs = rope_tables(positions, q.shape[-1], cfg.rope_theta)
+        q = apply_rope(q, positions, cfg.rope_theta, rope_tabs)
+        k = apply_rope(k, positions, cfg.rope_theta, rope_tabs)
     return q, k, v
 
 

@@ -82,9 +82,13 @@ class TransformerLM:
         cfg = self.cfg
         keep = write_mask[:, :, None, None]
         x = params["embed"][tokens.long()]
+        # the rotary angles depend on the positions only: once a round
+        rope_tabs = L.rope_tables(positions, cfg.resolved_head_dim,
+                                  cfg.rope_theta)
         for l, lp in enumerate(params["layers"]):
             h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            q, k_new, v_new = L.qkv_project(lp["attn"], h, cfg, positions)
+            q, k_new, v_new = L.qkv_project(lp["attn"], h, cfg, positions,
+                                            rope_tabs=rope_tabs)
             k_new = torch.where(keep, k_new, 0.0)
             v_new = torch.where(keep, v_new, 0.0)
             y = x + L.attn_output(lp["attn"], attend(l, q, k_new, v_new), cfg)

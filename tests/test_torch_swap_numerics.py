@@ -10,7 +10,9 @@ the scales) and consumer warps dequantize it into 16-byte stores, the same
 repeated-id rule deciding which items write.  ``csrc/swap_gather_pages_q8.cu``
 walks (layer, page, head block) items, loads each into a ring stage once,
 takes every head's absmax from shared memory (a warp per head, a shuffle
-reduction) and its codes from the same tile, 16 (or 8, or 4) a store.  This
+reduction) and its codes from the same tile, 16 (or 8, or 4) a store; a
+head whose rows exceed a stage takes its two-pass kernel instead, a CTA
+per (page, block of kHeadBlock heads), so that any H is taken.  This
 file models the walks in numpy with the constants read from the sources --
 the ring's stages and their mbarrier phases, the refill rule, the chunking
 of large pages, the head blocks, the scale slots, the repeated-id rule --
@@ -57,6 +59,9 @@ STAGE_BYTES = _constant(GATHER_Q8_SRC, "kStageBytes")
 Q8_STAGES = _constant(GATHER_Q8_SRC, "kStages")
 MAX_STAGE_BYTES = _constant(GATHER_Q8_SRC, "kMaxStageBytes")
 Q8_CTAS_PER_SM = _constant(GATHER_Q8_SRC, "kCtasPerSm")
+Q8_HEAD_BLOCK = _constant(GATHER_Q8_SRC, "kHeadBlock")
+TWO_PASS_THREADS = _constant((CSRC / "swap_pages_common.cuh").read_text(),
+                             "kThreads")
 Q8S_CHUNK_CODES = _constant(SCATTER_Q8_SRC, "kChunkCodes")
 Q8S_STAGES = _constant(SCATTER_Q8_SRC, "kStages")
 Q8S_CONSUMERS = 32 * _constant(SCATTER_Q8_SRC, "kConsumerWarps")
@@ -628,6 +633,76 @@ def gather_q8_model(pages, ids, esz, grid):
     return q.reshape(L, n, ps, H, hd), scales.reshape(L, n, 1, H, 1)
 
 
+def gather_q8_two_pass_model(pages, ids, esz):
+    """``gather_q8_two_pass_kernel`` on ``pages`` (f32 numpy, the values of
+    the pool's dtype): a CTA per (page, block of kHeadBlock heads, layer),
+    its kThreads threads on the block's 16-byte vectors t, t + kThreads,
+    ... of each token row's part; pass 1 folds each thread's running
+    per-head max into the head's shared slot (atomicMax on the float's
+    bits), pass 2 writes each vector's codes.  Returns (q, scales) and
+    asserts that every code and scale is written once, each by the CTA of
+    its head block, and that no slot outside the block's ``nh`` heads is
+    touched."""
+    L, n_phys, ps, H, hd = pages.shape
+    n = len(ids)
+    kvec = 16 // esz
+    head_vecs = hd // kvec
+    n_hblk = -(-H // Q8_HEAD_BLOCK)
+    flat = pages.reshape(L, n_phys, -1)
+    q = np.zeros((L, n, ps * H * hd), np.int8)
+    q_writes = np.zeros(q.shape, np.int64)
+    scales = np.zeros((L, n, H), np.float32)
+    s_writes = np.zeros(scales.shape, np.int64)
+    for l in range(L):
+        for x in range(n * n_hblk):             # blockIdx.x
+            i, hb = divmod(x, n_hblk)
+            h0 = hb * Q8_HEAD_BLOCK
+            nh = min(Q8_HEAD_BLOCK, H - h0)
+            blk_vecs = nh * head_vecs
+            v = np.arange(ps * blk_vecs)
+            s_, c = v // blk_vecs, v % blk_vecs
+            src_vec = s_ * (H * head_vecs) + h0 * head_vecs + c
+            vals = flat[l, ids[i]][src_vec[:, None] * kvec + np.arange(kvec)]
+            head = c // head_vecs                 # local head of each vector
+            assert head.max() < nh
+            amax = np.zeros(Q8_HEAD_BLOCK, np.uint32)
+            for t in range(TWO_PASS_THREADS):    # pass 1, thread by thread
+                mine = v[t::TWO_PASS_THREADS]
+                for h in np.unique(head[mine]):
+                    m = np.abs(vals[mine[head[mine] == h]]).max()
+                    amax[h] = max(amax[h], np.float32(m).view(np.uint32))
+            scale = amax[:nh].view(np.float32) / np.float32(127)
+            scales[l, i, h0:h0 + nh] = scale
+            s_writes[l, i, h0:h0 + nh] += 1
+            safe = np.where(scale > 0, scale, np.float32(1))[head]
+            y = vals / safe[:, None]
+            code = np.rint(np.fmin(np.fmax(y, -127), 127)).astype(np.int8)
+            at = src_vec[:, None] * kvec + np.arange(kvec)
+            q[l, i][at] = code
+            np.add.at(q_writes[l, i], at, 1)
+    assert (q_writes == 1).all() and (s_writes == 1).all()
+    return q.reshape(L, n, ps, H, hd), scales.reshape(L, n, 1, H, 1)
+
+
+@pytest.mark.parametrize("case", [
+    ("float32", (2, 300, 4)),     # two head blocks: 256 + 44
+    ("bfloat16", (2, 600, 8)),    # three: 256 + 256 + 88
+    ("float32", (1, 256, 4)),     # exactly one
+    ("float32", (16, 2, 2048)),   # chip_smoke.py's tall head, one block
+], ids=["300heads", "600heads_bf16", "256heads", "tall_head"])
+def test_gather_q8_two_pass_model_matches_plain_and_jax(rng, case):
+    """The two-pass kernel's walk, which shapes whose head exceeds
+    kMaxStageBytes take (at any H: chip_smoke.py runs 260 heads of 128 KiB
+    on the card), bitwise against the plain version and against
+    ``repro``'s jnp and interpret-mode Pallas kernels, at head counts over
+    one block of kHeadBlock."""
+    dtype, shape = case
+    pages_np, pages = _q8_pool(rng, shape, dtype)
+    esz = pages.element_size()
+    q, scales = gather_q8_two_pass_model(pages_np, Q8_IDS, esz)
+    _check_q8_result(q, scales, pages_np, pages, dtype, jax_too=True)
+
+
 def _q8_pool(rng, shape, dtype):
     pages_np, pages = _values(rng, (2, N_PHYS) + shape, dtype)
     pages_np[:, 5] = 0.0                          # an all-zero page
@@ -642,6 +717,10 @@ Q8_IDS = np.array([7, 2, 5, 5, 1, 8, 8, 8], np.int32)
 def _check_q8(pages_np, pages, dtype, grid, jax_too):
     esz = pages.element_size()
     q, scales = gather_q8_model(pages_np, Q8_IDS, esz, GRIDS[grid])
+    _check_q8_result(q, scales, pages_np, pages, dtype, jax_too)
+
+
+def _check_q8_result(q, scales, pages_np, pages, dtype, jax_too):
     tq, ts = tswap.swap_gather_pages_q8(pages, torch.from_numpy(Q8_IDS))
     np.testing.assert_array_equal(q, tq.numpy())
     np.testing.assert_array_equal(scales.view(np.int32),
@@ -730,6 +809,8 @@ def test_q8_plan_bounds_shared_memory():
         assert Q8_STAGES * plan["stage"] + 4 * 256 + 64 <= MAX_SMEM_PER_CTA
         assert Q8_STAGES * MAX_STAGE_BYTES + 4 * 256 + 64 <= MAX_SMEM_PER_CTA
     assert q8_plan(16, 2, 2048, 4) is None          # chip_smoke.py's tall head
+    assert q8_plan(16, 260, 2048, 4) is None        # and its 260 heads of it
+    assert -(-260 // Q8_HEAD_BLOCK) == 2            # two blocks of heads
     assert q8_plan(16, 2, 1152, 4) is not None
     assert q8_plan(16, 64, 128, 4)["n_hblk"] == 16  # chip_smoke.py's 512 KiB
     assert (SCATTER_CTAS_PER_SM * (SCATTER_STAGES * CHUNK_BYTES + 1024 + 64)
