@@ -18,7 +18,8 @@ Phases, each of which raises (exit code != 0) on failure:
    dims 64 and 128, and the decode kernel also at groups 12 (96/8 heads,
    as mistral-large-123b) and 48 (48/1, as granite-34b), hd 128, and at B=4
    over up to 2,048 keys (GQA 32/8 and group 48: several splits merged);
-   on rows with a valid key, |d| <= 1e-5 + 2**-7 |plain| (one bf16
+   both kernels also at group 7 (56/8, as arctic-480b), hd 128, bf16 and
+   f32 (the decode kernel over 2,048 keys too); on rows with a valid key, |d| <= 1e-5 + 2**-7 |plain| (one bf16
    rounding step, and never over 2e-2) in bf16 and <= 1e-5 in f32; a row
    with no valid key stores 0; at every decode case a NaN key (K and V) in the first
    split of one sequence reaches that sequence's output and changes no
@@ -78,7 +79,7 @@ Phases, each of which raises (exit code != 0) on failure:
    through the kernels on the card against the same rounds on the CPU
    through the plain versions (same bf16 weights; bf16 tolerance).
 10. fused kernels: the two fused-layout attention kernels against their
-   plain versions at phase 3's shapes (decode at groups 12 and 48 too) and
+   plain versions at phase 3's shapes (groups 7, 12 and 48 too) and
    tolerances, on ``fuse_pages(k, v)`` of phase 3's kind of inputs, with
    phase 3's NaN check; each must also equal the split kernel on ``(k, v)``
    BITWISE.  Timed like phase 3, and against the split kernel on the same
@@ -108,7 +109,8 @@ Phases, each of which raises (exit code != 0) on failure:
    64, 128, 256}, and GQA 32/8 at hd 64 and 128; ``decode_attention`` at
    B=16, S=512, 16/16, hd 64, GQA, groups 12 (96/8) and 48 (48/1) at hd
    128, B=4, S=2,048 (32/8 and 48/1: several splits merged), and B=4,
-   S=32,768, 32/8, hd 128 (qwen3-8b's attention widths).  Phase 3's
+   S=32,768, 32/8, hd 128 (qwen3-8b's attention widths); both kernels
+   also at group 7 (56/8, arctic-480b), hd 128, bf16 and f32.  Phase 3's
    tolerances against the plain versions; on the sink views each output
    BITWISE equal to the paged kernel's on the same keys laid into
    pages (each pair shares one body: the prefill one tensor-core body and
@@ -168,6 +170,27 @@ Phases, each of which raises (exit code != 0) on failure:
    copies and in ``dispatch``, and each round's span on the device (CUDA
    events around ``dispatch``), each with its range; greedy tokens of
    graph against eager printed, not gated.
+22. the MoE and VLM families: arctic-480b's published widths (d_model
+   7168, 56/8 heads: group 7, hd 128, 128 experts top-2 of d_ff 4864 plus
+   a dense residual FFN, capacity factor 1.25, the scatter dispatch, vocab
+   32,000) with ``n_layers`` cut to 2 (printed as reduced; 55.4 GB of
+   seeded bf16 weights), served through the graphs as phase 20 serves
+   (every request finishes; decode and prefill launches ``n_layers`` per
+   round of their kind), each bucket's device ms per round printed
+   against its bound (every layer's weights, every expert included, read
+   once); the same requests on an eager engine sharing the weights,
+   printing the real tokens' expert choices dropped at capacity and the
+   experts they reach per bucket (with the bound of the weights that
+   data needs); the replays BITWISE equal to that eager engine's step at
+   every bucket (phase 21's check); then ``moe_ffn_scatter`` and
+   ``moe_ffn`` on layer 0's experts at T = 16 (capacity 1) and T = 2,048
+   (capacity 40) against a per-token reference (host top-k and each
+   impl's capacity walk): the output BITWISE equal to the combine of the
+   expert GEMMs' rows at the reference's slots, each of those rows within
+   one bf16 step plus the hidden move of the per-token SwiGLU.  Then
+   llava-next-mistral-7b's text backbone at full width and depth (32
+   layers, 14.5 GB), served and gated the same way.  Each engine is freed
+   before the next; the phase's seconds are printed.
 
 The second-to-last line is a JSON object listing every kernel with its
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -191,6 +214,7 @@ it.  Then prints, per kernel and shape, both sides' times and this / other.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -499,9 +523,11 @@ def kernel_phase(torch, fused=False):
     gqa128 = dict(gqa, hd=128)                      # the other head dim built
     group12 = dict(qwen, Hq=96, Hkv=8, hd=128)      # mistral-large-123b heads
     group48 = dict(qwen, Hq=48, Hkv=1, hd=128)      # granite-34b heads (MQA)
+    group7 = dict(qwen, Hq=56, Hkv=8, hd=128)       # arctic-480b heads
     # up to 2,048 keys: up to four decode splits merged in one launch
     merge = dict(gqa128, B=4, max_pages=129)
     merge48 = dict(group48, B=4, max_pages=129)
+    merge7 = dict(group7, B=4, max_pages=129)
     bf16, f32 = torch.bfloat16, torch.float32
     layout = "fused" if fused else "split"
     results = {}
@@ -519,9 +545,12 @@ def kernel_phase(torch, fused=False):
                                (f32, qwen, "qwen f32"),
                                (f32, group12, "group 12 f32"),
                                (f32, group48, "group 48 f32"),
+                               (bf16, group7, "group 7 bf16"),
+                               (f32, group7, "group 7 f32"),
                                (bf16, merge, "gqa hd=128 2048 keys bf16"),
                                (f32, merge, "gqa hd=128 2048 keys f32"),
-                               (bf16, merge48, "group 48 2048 keys bf16")):
+                               (bf16, merge48, "group 48 2048 keys bf16"),
+                               (bf16, merge7, "group 7 2048 keys bf16")):
         r = decode_case(torch, timer, gen, dtype=dtype, timed=False,
                         fused=fused, **shape)
         worst = max(worst, r["max_abs_err"])
@@ -550,7 +579,10 @@ def kernel_phase(torch, fused=False):
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})" + split_note(r))
     for dtype, shape, Sq, name in ((bf16, gqa, 64, "gqa bf16 Sq=64"),
                                    (bf16, gqa128, 64, "gqa hd=128 bf16 Sq=64"),
-                                   (f32, qwen, 128, "qwen f32 Sq=128")):
+                                   (f32, qwen, 128, "qwen f32 Sq=128"),
+                                   (bf16, group7, 16, "group 7 bf16 Sq=16"),
+                                   (bf16, group7, 128, "group 7 bf16 Sq=128"),
+                                   (f32, group7, 64, "group 7 f32 Sq=64")):
         r = prefill_case(torch, timer, gen, Sq=Sq, dtype=dtype, timed=False,
                          fused=fused, **shape)
         log(f"  prefill {layout} {name}: err {r['max_abs_err']:.3e}")
@@ -1564,8 +1596,10 @@ def dense_kernel_phase(torch):
     gqa128 = dict(gqa, hd=128)
     group12 = dict(qwen, Hq=96, Hkv=8, hd=128)          # mistral-large-123b
     group48 = dict(qwen, Hq=48, Hkv=1, hd=128)          # granite-34b (MQA)
+    group7 = dict(qwen, Hq=56, Hkv=8, hd=128)           # arctic-480b
     merge = dict(gqa128, B=4, S=2048)       # up to four decode splits merged
     merge48 = dict(group48, B=4, S=2048)
+    merge7 = dict(group7, B=4, S=2048)
     results = {}
     buckets = {}
     for Sq in (1, 16, 32, 64, 128, 256):
@@ -1579,7 +1613,10 @@ def dense_kernel_phase(torch):
     for dtype, shape, Sq, name in ((bf16, gqa, 64, "gqa bf16 Sq=64"),
                                    (bf16, gqa128, 64, "gqa hd=128 bf16 Sq=64"),
                                    (bf16, gqa128, 1, "gqa hd=128 bf16 Sq=1"),
-                                   (f32, qwen, 128, "qwen f32 Sq=128")):
+                                   (f32, qwen, 128, "qwen f32 Sq=128"),
+                                   (bf16, group7, 1, "group 7 bf16 Sq=1"),
+                                   (bf16, group7, 128, "group 7 bf16 Sq=128"),
+                                   (f32, group7, 64, "group 7 f32 Sq=64")):
         r = dense_prefill_case(torch, timer, gen, Sq=Sq, dtype=dtype,
                                timed=False, **shape)
         log(f"  chunked prefill {name}: err {r['max_abs_err']:.3e}")
@@ -1600,9 +1637,12 @@ def dense_kernel_phase(torch):
                                (f32, qwen, "qwen f32"),
                                (f32, group12, "group 12 f32"),
                                (f32, group48, "group 48 f32"),
+                               (bf16, group7, "group 7 bf16"),
+                               (f32, group7, "group 7 f32"),
                                (bf16, merge, "gqa hd=128 S=2048 bf16"),
                                (f32, merge, "gqa hd=128 S=2048 f32"),
-                               (bf16, merge48, "group 48 S=2048 bf16")):
+                               (bf16, merge48, "group 48 S=2048 bf16"),
+                               (bf16, merge7, "group 7 S=2048 bf16")):
         r = dense_decode_case(torch, timer, gen, dtype=dtype, timed=False,
                               **shape)
         worst = max(worst, r["max_abs_err"])
@@ -1961,40 +2001,63 @@ def nan_guard_phase(torch, layout):
 GRANITE_LAYERS = 2      # of granite-34b's 88: the widths stay published
 
 
-def granite_serve_phase(torch):
-    """A short serve through ``TorchEngine`` at granite-34b's published
-    widths -- d_model 6144, 48 query heads over 1 KV head (MQA: a decode
-    group of 48), hd 128, d_ff 24,576, vocab 49,152 -- with ``n_layers`` cut
-    to GRANITE_LAYERS, seeded bf16 weights, the split layout, greedy, 8 of
-    the serve workload's requests.  Every request must finish with its full
-    token count; the decode kernel runs ``n_layers`` times per pure-decode
-    round and the prefill kernel ``n_layers`` times per round with C > 1."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.engine.engine import TorchEngine, serve
+def build_at_width(torch, cfg, params=None, cuda_graphs=True):
+    """What ``serve --full --arch`` builds for ``cfg`` (the split layout,
+    greedy, 8 of the serve workload's requests), bound to its pool and
+    warmed up: (engine, pool, args).  ``params``: another engine's weights,
+    shared."""
+    from repro_torch.engine.engine import TorchEngine
     from repro_torch.engine.kv_cache import pool_for_model
     from repro_torch.launch import serve as serve_cli
 
-    full = get_config("granite-34b")
-    cfg = dataclasses.replace(full, n_layers=GRANITE_LAYERS)
-    log(f"  {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} query heads over "
-        f"{cfg.n_kv_heads} KV head(s), hd {cfg.resolved_head_dim}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}; reduced: n_layers "
-        f"{full.n_layers} -> {cfg.n_layers}")
     args = serve_cli.build_parser().parse_args(
         ["--full", "--arch", cfg.name, "--n-requests", "8"])
-    engine = TorchEngine(cfg, serve_cli._engine_cfg(args), device="cuda")
+    engine = TorchEngine(cfg, serve_cli._engine_cfg(args), params=params,
+                         device="cuda", cuda_graphs=cuda_graphs)
     kv_pool = pool_for_model(cfg, n_blocks=args.kv_blocks)
     engine.bind_kv_pool(kv_pool)
     engine.warmup()
+    torch.cuda.synchronize()
+    return engine, kv_pool, args
+
+
+def gated_serve(torch, engine, kv_pool, args):
+    """Serve the workload of ``args`` on a built engine.  Every request must
+    finish with its full token count; the decode kernel runs ``n_layers``
+    times per pure-decode round and the prefill kernel ``n_layers`` times
+    per round with C > 1.  Returns (result, requests, output tokens, kernel
+    launches, each round's span on the device by chunk bucket: CUDA events
+    around its dispatch, as phase 21 takes them)."""
+    from repro_torch.engine.engine import serve
+    from repro_torch.launch import serve as serve_cli
+
+    cfg = engine.model_cfg
     sched = serve_cli.build_scheduler(args)
     reqs = serve_cli.workload(args, cfg)
+    spans = []
+    dispatch = engine.dispatch
+
+    def timed(batch):
+        before = dict(engine.bucket_rounds)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = dispatch(batch)
+        end.record()
+        C = next(c for c, n in engine.bucket_rounds.items()
+                 if n != before.get(c, 0))
+        spans.append((C, start, end))
+        return out
+
+    engine.dispatch = timed
     torch.cuda.synchronize()
     engine.bucket_rounds.clear()
     zero_launches()
-    res = serve(reqs, sched, engine, kv_pool=kv_pool)
-    torch.cuda.synchronize()
+    try:
+        res = serve(reqs, sched, engine, kv_pool=kv_pool)
+        torch.cuda.synchronize()
+    finally:
+        del engine.dispatch
     launches = read_launches()
     toks = check_outputs(res, reqs, cfg.vocab_size)
     decode_rounds = engine.bucket_rounds.get(1, 0)
@@ -2006,11 +2069,40 @@ def granite_serve_phase(torch):
     require(launches["paged_prefill_attention"] == cfg.n_layers * mixed_rounds,
             f"prefill launches {launches} != {cfg.n_layers} x {mixed_rounds} "
             "rounds with C > 1")
+    by_bucket = {}
+    for C, a, b in spans:
+        by_bucket.setdefault(C, []).append(a.elapsed_time(b))
+    kv_pool.reset()
+    return res, reqs, toks, launches, by_bucket
+
+
+def log_served(res, toks, engine, launches) -> None:
     log(f"  served {res.report.n_finished}/{res.report.n_total} requests, "
         f"{len(toks)} output tokens in {res.wall_s:.3f} s over {res.rounds} "
         f"rounds (by chunk bucket: {dict(sorted(engine.bucket_rounds.items()))})"
         f"; output tok/s {len(toks) / res.wall_s:.1f}")
     log(f"  kernel launches: { {n: c for n, c in launches.items() if c} }")
+
+
+def granite_serve_phase(torch):
+    """A short serve through ``TorchEngine`` at granite-34b's published
+    widths -- d_model 6144, 48 query heads over 1 KV head (MQA: a decode
+    group of 48), hd 128, d_ff 24,576, vocab 49,152 -- with ``n_layers`` cut
+    to GRANITE_LAYERS, seeded bf16 weights, the split layout, greedy, 8 of
+    the serve workload's requests, gated by ``gated_serve``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config("granite-34b")
+    cfg = dataclasses.replace(full, n_layers=GRANITE_LAYERS)
+    log(f"  {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} query heads over "
+        f"{cfg.n_kv_heads} KV head(s), hd {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; reduced: n_layers "
+        f"{full.n_layers} -> {cfg.n_layers}")
+    engine, kv_pool, args = build_at_width(torch, cfg)
+    res, _, toks, launches, _ = gated_serve(torch, engine, kv_pool, args)
+    log_served(res, toks, engine, launches)
     del engine, kv_pool
 
 
@@ -2056,17 +2148,12 @@ def round_arrays(gen, B, C, lens, max_len, vocab):
 
 def bitwise_round_case(torch, layout):
     """Two full-width engines of ``layout`` from the same seed, one with
-    CUDA graphs and one eager, given one state (the same random K/V in
-    every page or row, permuted block tables, ragged lengths up to 560 of
-    1,024, random ``last_token``): at every bucket, and at C = 1 again at
-    the end (lengths past 1,024: three decode splits merged), one replay
-    against one eager ``_step`` on the same inputs; the sampled ids,
-    ``lens``, ``last_token`` and every cache tensor must agree BITWISE.
-    Returns (graphs captured, warm-up s of the graph engine, capture s,
-    pool bytes)."""
+    CUDA graphs and one eager, through ``bitwise_rounds`` (lengths up to 560
+    of 1,024: at C = 1 again at the end, past 1,024 keys, three decode
+    splits merged).  Returns (graphs captured, warm-up s of the graph
+    engine, capture s, pool bytes)."""
     import dataclasses
 
-    import numpy as np
     from repro_torch.engine.engine import TorchEngine
     from repro_torch.launch import serve as serve_cli
 
@@ -2084,11 +2171,31 @@ def bitwise_round_case(torch, layout):
         warm_s.append(time.perf_counter() - t0)
         engines.append(eng)
     g, e = engines
-    require(len(g.graphs) == len(ecfg.chunk_buckets) and not e.graphs,
-            f"{layout}: {len(g.graphs)} graphs captured for "
-            f"{len(ecfg.chunk_buckets)} buckets, {len(e.graphs)} eager")
     require(same_bits(g.params["embed"], e.params["embed"]),
             f"{layout}: the two engines' seeded weights differ")
+    bitwise_rounds(torch, g, e, layout, GRAPH_MAX_CONTEXT, 560, (540, 515))
+    out = (len(g.graphs), warm_s[0], warm_s[1],
+           sum(gr.capture_s for gr in g.graphs.values()),
+           graph_pool_bytes(torch, g))
+    del g, e, engines
+    torch.cuda.empty_cache()
+    return out
+
+
+def bitwise_rounds(torch, g, e, tag, max_len, lens_hi, long):
+    """A graph engine ``g`` and an eager engine ``e`` of one config given
+    one state (the same random K/V in every page or row, permuted block
+    tables, ragged lengths up to ``lens_hi`` with slots 1 and 2 at
+    ``long``, random ``last_token``): at every bucket, and at C = 1 again
+    at the end, one replay against one eager ``_step`` on the same inputs;
+    the sampled ids, ``lens``, ``last_token`` and every cache tensor must
+    agree BITWISE, and ``g`` must hold one graph per bucket."""
+    import numpy as np
+
+    ecfg, cfg = g.cfg, g.model_cfg
+    require(len(g.graphs) == len(ecfg.chunk_buckets) and not e.graphs,
+            f"{tag}: {len(g.graphs)} graphs captured for "
+            f"{len(ecfg.chunk_buckets)} buckets, {len(e.graphs)} eager")
     B = ecfg.n_slots
     gen = np.random.default_rng(21)
     tgen = torch.Generator(device="cuda").manual_seed(21)
@@ -2098,21 +2205,20 @@ def bitwise_round_case(torch, layout):
                                dtype=cache.dtype)
             cache[l].copy_(vals)
             e.cache[name][l].copy_(vals)
-    lens = gen.integers(0, 561, B).astype(np.int32)
-    lens[0], lens[1], lens[2] = 0, 540, 515
-    if layout != "dense":
+    lens = gen.integers(0, lens_hi + 1, B).astype(np.int32)
+    lens[0], (lens[1], lens[2]) = 0, long
+    if ecfg.paged_kv:
         tables = gen.permutation(g._n_phys - 1)[: B * g.max_pages]
-        for eng in engines:
+        for eng in (g, e):
             eng._bt_host[:] = tables.reshape(B, g.max_pages)
             eng._bt_len[:] = g.max_pages
             eng._copy_in(eng.block_tables, eng._bt_host)
     last = gen.integers(1, cfg.vocab_size, B).astype(np.int32)
-    for eng in engines:
+    for eng in (g, e):
         eng._copy_in(eng.lens, lens)
         eng._copy_in(eng.last_token, last)
     for C in ecfg.chunk_buckets + (1,):
-        arr, chunk = round_arrays(gen, B, C, lens, GRAPH_MAX_CONTEXT,
-                                  cfg.vocab_size)
+        arr, chunk = round_arrays(gen, B, C, lens, max_len, cfg.vocab_size)
         g._copy_in(g._inputs(C), arr)
         got = g.graphs[C].replay()
         e._copy_in(e._inputs(C), arr)
@@ -2122,21 +2228,15 @@ def bitwise_round_case(torch, layout):
                            ("lens", g.lens, e.lens),
                            ("last_token", g.last_token, e.last_token)):
             require(same_bits(a, b),
-                    f"{layout} C={C}: the replay's {what} differ from the "
+                    f"{tag} C={C}: the replay's {what} differ from the "
                     "eager step's")
         for name in g.cache:
             require(same_bits(g.cache[name], e.cache[name]),
-                    f"{layout} C={C}: cache[{name!r}] differs from the "
+                    f"{tag} C={C}: cache[{name!r}] differs from the "
                     "eager step's")
         require(bool((g.lens.cpu().numpy() == lens).all()),
-                f"{layout} C={C}: lens {g.lens.tolist()} != {lens.tolist()}")
+                f"{tag} C={C}: lens {g.lens.tolist()} != {lens.tolist()}")
     torch.cuda.synchronize()
-    out = (len(g.graphs), warm_s[0], warm_s[1],
-           sum(gr.capture_s for gr in g.graphs.values()),
-           graph_pool_bytes(torch, g))
-    del g, e, engines
-    torch.cuda.empty_cache()
-    return out
 
 
 def sampled_replays(torch):
@@ -2321,6 +2421,337 @@ def compiled_round_phase(torch):
     serve_pairs(torch, "split", GRAPH_PAIRS)
     serve_pairs(torch, "fused", 1)
     serve_pairs(torch, "dense", 1)
+
+
+# -- phase 22: the MoE and VLM families served -------------------------------
+ARCTIC_LAYERS = 2       # of arctic-480b's 35: 55.4 GB of bf16 weights
+# the per-token check's inputs (B, S): a decode round (T = 16, capacity 1)
+# and a C = 128 round (T = 2,048, capacity 40)
+MOE_CHECKS = ((16, 1), (16, 128))
+
+
+def param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def round_bound(cfg, params, B, C):
+    """The least time of one round of ``B`` slots at chunk bucket ``C`` on
+    the card: the weights it must read once (every layer's, every expert
+    included -- the expert GEMMs run every expert's capacity slots -- the
+    unembedding, and the embedding rows it gathers; KV bytes left out, a
+    few percent here) over HBM, against its GEMMs' operations over the bf16
+    peak.  (ms, "bytes" or "operations", bytes)."""
+    from repro_torch.models import layers as L
+
+    T, D = B * C, cfg.d_model
+    esz = 2
+    head = params["lm_head"] if "lm_head" in params else params["embed"]
+    n_bytes = (param_bytes(params["layers"]) + head.numel() * esz
+               + params["final_norm"].numel() * esz + T * D * esz)
+    hd = cfg.resolved_head_dim
+    per_layer = 2 * T * D * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    lp = params["layers"][0]
+    if "ffn" in lp:
+        per_layer += 6 * T * D * cfg.d_ff
+    if "moe" in lp:
+        m = cfg.moe
+        cap = L.moe_capacity(min(T, L.MOE_GROUP_SIZE), m.n_experts, m.top_k,
+                             m.capacity_factor) * max(1, T // L.MOE_GROUP_SIZE)
+        per_layer += 2 * T * D * m.n_experts + 6 * m.n_experts * cap * D * m.d_ff
+    n_ops = cfg.n_layers * per_layer + 2 * B * head.numel()
+    ms, by = bound_ms(n_bytes, n_ops)
+    return ms, by, n_bytes
+
+
+def log_rounds(cfg, params, by_bucket, B) -> None:
+    """Each bucket's mean device span per round against its bound."""
+    for C in sorted(by_bucket):
+        xs = by_bucket[C]
+        b_ms, b_by, n_bytes = round_bound(cfg, params, B, C)
+        log(f"    C={C}: {len(xs)} rounds, device ms per round "
+            f"{spread(xs)}; bound {b_ms:.3f} ms ({b_by}: {n_bytes / 1e9:.2f} "
+            f"GB of weights); mean / bound {statistics.mean(xs) / b_ms:.2f}")
+
+
+def counted_drops(torch, engine, reqs_fn):
+    """Run ``reqs_fn()`` (a serve on the EAGER ``engine``) while counting,
+    by chunk bucket, the real tokens' expert choices that the scatter
+    dispatch drops at capacity and the experts that the kept ones reach:
+    the rounds' MoE inputs routed again through the port's own routing and
+    capacity order (``moe_route``, ``capacity_rows``).  Returns (reqs_fn's
+    result, {C: (dropped, real choices, experts reached summed over the
+    MoE layers of the bucket's rounds, those layer-rounds)})."""
+    from repro_torch.models import layers as L
+
+    state = {}
+    counts = {}
+    step, moe = engine._step, L.moe_ffn_scatter
+
+    def step_rec(tokens, chunk_lens, use_last, sample_mask):
+        C = tokens.shape[1]
+        state["C"] = C
+        state["real"] = (torch.arange(C, device=tokens.device)[None, :]
+                         < chunk_lens[:, None]).reshape(-1)
+        return step(tokens, chunk_lens, use_last, sample_mask)
+
+    def moe_rec(p, x, cfg, group_size=0):
+        m = cfg.moe
+        xg = L.moe_groups(x, group_size)
+        G, t, _ = xg.shape
+        _, top_idx = L.moe_route(p, xg, m.top_k)
+        cap = L.moe_capacity(t, m.n_experts, m.top_k, m.capacity_factor)
+        dest = L.capacity_rows(top_idx, m.n_experts, cap, "token")
+        real = state["real"].view(G, t, 1)
+        dropped = dest == m.n_experts * G * cap
+        reached = (torch.nn.functional.one_hot(top_idx, m.n_experts)
+                   * (real & ~dropped)[..., None]).amax((0, 1, 2))
+        c = counts.setdefault(state["C"], [])
+        c.append(torch.stack([(dropped & real).sum(), real.sum() * m.top_k,
+                              reached.sum()]))
+        return moe(p, x, cfg, group_size)
+
+    engine._step, L.moe_ffn_scatter = step_rec, moe_rec
+    try:
+        out = reqs_fn()
+        torch.cuda.synchronize()
+    finally:
+        del engine._step
+        L.moe_ffn_scatter = moe
+    return out, {C: tuple(int(v) for v in torch.stack(c).sum(0)) + (len(c),)
+                 for C, c in counts.items()}
+
+
+def capacity_slots(idx, E, cap, impl):
+    """The reference's capacity walk, one (token, choice) at a time: each
+    pair's slot in its expert, -1 where the expert is full.  ``scatter``:
+    token-major over the flattened (token, choice) axis; ``onehot``: choice
+    0 of every token first, the kept counts carried into choice 1."""
+    import numpy as np
+    T, K = idx.shape
+    slot = np.full((T, K), -1, np.int64)
+    if impl == "scatter":
+        n = np.zeros(E, np.int64)
+        for t in range(T):
+            for j in range(K):
+                e = idx[t, j]
+                if n[e] < cap:
+                    slot[t, j] = n[e]
+                n[e] += 1
+        return slot
+    kept = np.zeros(E, np.int64)
+    for j in range(K):
+        run = np.zeros(E, np.int64)
+        for t in range(T):
+            e = idx[t, j]
+            if kept[e] + run[e] < cap:
+                slot[t, j] = kept[e] + run[e]
+            run[e] += 1
+        kept += np.bincount(idx[slot[:, j] >= 0, j], minlength=E)
+    return slot
+
+
+def moe_token_check(torch, p, cfg, B, S, impl, gen):
+    """``moe_ffn_scatter`` (``impl="scatter"``) or ``moe_ffn`` on random
+    bf16 rows x (B, S, D) against the reference computed per token: the
+    top-k of the f32 router probabilities on the host (largest first, the
+    lowest index among equals), the renormalised weights, each impl's
+    capacity walk (``capacity_slots``) and, for every kept (token, choice),
+    the token through its expert's SwiGLU (the tokens of one expert stacked
+    in one GEMM: its rows are independent).  Gates: (1) the impl's output
+    BITWISE equal to the combine, in the impl's dtype rule, of the expert
+    rows that the expert GEMMs (``L.expert_ffn``) give on the buffer the
+    reference fills (each kept token at its slot): routing, drops, dispatch
+    and combine exact; (2) each kept row of those GEMMs within one bf16
+    step (phase 3's rule; its 2e-2 cap, an attention output's size, replaced
+    by a floor of 2**-16 of the row's largest |y|, the f32 sums' own noise
+    at these magnitudes) of the per-token SwiGLU, plus the move of the
+    hidden values that round differently (phase 15's accounting).
+    Returns a dict of counts and errors."""
+    import numpy as np
+    from repro_torch.models import layers as L
+
+    m, D = cfg.moe, cfg.d_model
+    E, K = m.n_experts, m.top_k
+    T = B * S
+    require(T <= L.MOE_GROUP_SIZE, "one capacity group")
+    cap = L.moe_capacity(T, E, K, m.capacity_factor)
+    x = torch.randn((B, S, D), generator=gen, device="cuda").to(torch.bfloat16)
+    got = (L.moe_ffn_scatter if impl == "scatter" else L.moe_ffn)(
+        p, x, cfg).reshape(T, D)
+    xf = x.reshape(T, D)
+    probs = torch.softmax(xf.float() @ p["router"], dim=-1).cpu().numpy()
+    idx = np.argsort(-probs, axis=1, kind="stable")[:, :K]
+    w = np.take_along_axis(probs, idx, 1)
+    w = w / np.maximum(w.sum(1, keepdims=True), np.float32(1e-9))
+    slot = capacity_slots(idx, E, cap, impl)
+    tt, jj = np.nonzero(slot >= 0)
+    ee, ss = idx[tt, jj], slot[tt, jj]
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    buf = torch.zeros((E, cap, D), dtype=x.dtype, device="cuda")
+    buf[dev(ee), dev(ss)] = xf[dev(tt)]
+    y_all = L.expert_ffn(p, buf)
+    h_all = L.expert_hidden(p, buf)
+    rows = torch.zeros((T, K, D), dtype=x.dtype, device="cuda")
+    rows[dev(tt), dev(jj)] = y_all[dev(ee), dev(ss)]
+    wt = dev(w)
+    if impl == "scatter":
+        want = (rows * wt.to(x.dtype)[..., None]).sum(1)
+    else:
+        want = (wt.to(x.dtype)[..., None].float() * rows.float()).sum(1).to(
+            x.dtype)
+    if not same_bits(got, want):
+        d = (got.float() - want.float()).abs()
+        raise AssertionError(
+            f"moe {impl} T={T}: output differs from the per-token routing, "
+            f"drops and combine at {int((d > 0).sum())} of {d.numel()} "
+            f"values (max |d| {d.max().item():.3e})")
+    worst, flips, over = 0.0, 0, 0
+    for e in np.unique(ee):
+        sel = ee == e
+        xe = xf[dev(tt[sel])]
+        h_tok = (torch.nn.functional.silu(xe @ p["w_gate"][e])
+                 * (xe @ p["w_up"][e]))
+        y_tok = (h_tok @ p["w_down"][e]).float()
+        h_b = h_all[e, dev(ss[sel])]
+        y_b = y_all[e, dev(ss[sel])].float()
+        moved = (h_b.float() - h_tok.float()).abs() @ p["w_down"][e].float().abs()
+        floor = 2.0 ** -16 * y_tok.abs().amax(1, keepdim=True)
+        step = TOL_BF16[0] + TOL_BF16[1] * y_tok.abs()
+        err = (y_b - y_tok).abs()
+        bad = err > torch.maximum(step, floor) + moved
+        require(not bool(bad.any()),
+                f"moe {impl} T={T} expert {e}: {int(bad.sum())} expert "
+                "outputs off the per-token SwiGLU by more than one bf16 step "
+                "plus the move of the hidden values that differ")
+        flips += int((h_b != h_tok).sum())
+        over += int((err > step).sum())
+        worst = max(worst, err.max().item())
+    torch.cuda.synchronize()
+    return {"T": T, "capacity": cap, "kept": len(tt), "dropped": T * K - len(tt),
+            "max_err": worst, "hidden_differ": flips, "over_step": over}
+
+
+def moe_vlm_phase(torch):
+    """Phase 22: arctic-480b at its published widths (2 of 35 layers),
+    served through the graphs (the split layout, greedy, 8 of the serve
+    workload's requests) and gated as phase 20; the same requests served by
+    an eager engine sharing its weights, counting the real tokens dropped
+    at capacity; the replays bitwise against that eager engine's step at
+    every bucket; ``moe_ffn_scatter`` and ``moe_ffn`` on layer 0's experts
+    against the per-token reference; then llava-next-mistral-7b's backbone
+    at full width and depth, served and gated the same way."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.engine.engine import serve
+    from repro_torch.launch import serve as serve_cli
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"  device memory in use as the phase starts: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    full = get_config("arctic-480b")
+    cfg = dataclasses.replace(full, n_layers=ARCTIC_LAYERS)
+    m = cfg.moe
+    log(f"  {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} query heads over "
+        f"{cfg.n_kv_heads} KV heads (group {cfg.q_per_kv}), hd "
+        f"{cfg.resolved_head_dim}, {m.n_experts} experts top-{m.top_k} of "
+        f"d_ff {m.d_ff} + a dense residual FFN of d_ff {cfg.d_ff}, capacity "
+        f"factor {m.capacity_factor}, moe_impl {cfg.moe_impl!r}, vocab "
+        f"{cfg.vocab_size}; reduced: n_layers {full.n_layers} -> "
+        f"{cfg.n_layers}")
+    t0 = time.perf_counter()
+    g, g_pool, args = build_at_width(torch, cfg)
+    log(f"  weights {param_bytes(g.params) / 1e9:.2f} GB (seeded, bf16); "
+        f"built and warmed up in {time.perf_counter() - t0:.2f} s: "
+        f"{len(g.graphs)} graphs captured in "
+        f"{sum(x.capture_s for x in g.graphs.values()):.2f} s, graph pool "
+        f"{graph_pool_bytes(torch, g)} B; device memory in use "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    e, e_pool, _ = build_at_width(torch, cfg, params=g.params,
+                                  cuda_graphs=False)
+    res, reqs, toks, launches, spans = gated_serve(torch, g, g_pool, args)
+    log_served(res, toks, g, launches)
+    log_rounds(cfg, g.params, spans, g.cfg.n_slots)
+
+    def eager_serve():
+        sched = serve_cli.build_scheduler(args)
+        ereqs = serve_cli.workload(args, cfg)
+        return ereqs, serve(ereqs, sched, e, kv_pool=e_pool)
+
+    (ereqs, eres), drops = counted_drops(torch, e, eager_serve)
+    etoks = check_outputs(eres, ereqs, cfg.vocab_size)
+    e_pool.reset()
+    same = sum(res.outputs[a.req_id] == eres.outputs[b.req_id]
+               for a, b in zip(reqs, ereqs))
+    total = [sum(v[i] for v in drops.values()) for i in (0, 1)]
+    expert_bytes = param_bytes(
+        {n: g.params["layers"][0]["moe"][n] for n in ("w_gate", "w_up",
+                                                      "w_down")}) / m.n_experts
+    log(f"  the same requests on an eager engine sharing the weights: output "
+        f"tok/s {len(etoks) / eres.wall_s:.1f} over {eres.rounds} rounds; "
+        f"greedy outputs equal to the graph serve's for {same} of {len(reqs)}"
+        " requests (printed, not gated: the rounds depend on timing)")
+    log(f"  real expert choices dropped at capacity (eager serve, both "
+        f"layers), by chunk bucket: "
+        + ", ".join(f"C={C}: {d} of {n}"
+                    for C, (d, n, *_) in sorted(drops.items()))
+        + f"; in all {total[0]} of {total[1]} "
+        f"({total[0] / max(total[1], 1):.2%})")
+    for C, (_, _, reached, layer_rounds) in sorted(drops.items()):
+        per_layer = reached / layer_rounds
+        b_ms, _, n_bytes = round_bound(cfg, g.params, g.cfg.n_slots, C)
+        need = n_bytes - cfg.n_layers * (m.n_experts - per_layer) * expert_bytes
+        log(f"    C={C}: the real tokens' kept choices reach {per_layer:.1f} "
+            f"of {m.n_experts} experts a layer (eager serve): the bound of "
+            f"the weights this data needs {need / HBM_BYTES_PER_S * 1e3:.3f} "
+            f"ms ({need / 1e9:.2f} GB), against {b_ms:.3f} ms for every "
+            "expert")
+    bitwise_rounds(torch, g, e, "arctic", g.cfg.max_context, 240, (250, 245))
+    log("  replays bitwise equal to the eager step at every bucket and at C=1 "
+        "again: sampled ids, lens, last_token, every cache tensor")
+    del e, e_pool
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    moe0 = g.params["layers"][0]["moe"]
+    for B, S in MOE_CHECKS:
+        for impl in ("scatter", "onehot"):
+            r = moe_token_check(torch, moe0, cfg, B, S, impl, gen)
+            log(f"  per-token check, {impl}, T={r['T']} (capacity "
+                f"{r['capacity']}): {r['kept']} choices kept, "
+                f"{r['dropped']} dropped; output bitwise equal to the "
+                "per-token routing, drops and combine; expert rows within one "
+                f"bf16 step plus the hidden move of the per-token SwiGLU (max "
+                f"|d| {r['max_err']:.3e}; {r['over_step']} values over one "
+                f"step; {r['hidden_differ']} hidden values round otherwise)")
+    log(f"  arctic's peak device memory: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved")
+    del g, g_pool, moe0
+    torch.cuda.empty_cache()
+
+    cfg = get_config("llava-next-mistral-7b")
+    log(f"  {cfg.name} (its text backbone): {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        "full width and depth")
+    t0 = time.perf_counter()
+    v, v_pool, args = build_at_width(torch, cfg)
+    log(f"  weights {param_bytes(v.params) / 1e9:.2f} GB; built and warmed "
+        f"up in {time.perf_counter() - t0:.2f} s ({len(v.graphs)} graphs)")
+    res, _, toks, launches, spans = gated_serve(torch, v, v_pool, args)
+    log_served(res, toks, v, launches)
+    log_rounds(cfg, v.params, spans, v.cfg.n_slots)
+    del v, v_pool
+    torch.cuda.empty_cache()
+    log(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s")
 
 
 # -- --turns: the attention and SwiGLU kernels of two trees in turns ----------
@@ -2597,6 +3028,11 @@ def main() -> int:
 
     log("== the compiled round: CUDA graphs against the eager step")
     compiled_round_phase(torch)
+    torch.cuda.empty_cache()
+
+    log(f"== the MoE and VLM families: arctic-480b's widths ({ARCTIC_LAYERS} "
+        "layers, 128 experts, group 7) and llava-next-mistral-7b, served")
+    moe_vlm_phase(torch)
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/paged_decode_attention.py:249",

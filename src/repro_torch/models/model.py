@@ -1,5 +1,6 @@
 """Model factory: ``build_model(cfg)`` wraps the config family's
-implementation (the port of ``repro/models/model.py``, dense family only)."""
+implementation (the port of ``repro/models/model.py``: the dense, MoE and
+VLM families, all three ``TransformerLM``)."""
 from __future__ import annotations
 
 import torch
@@ -11,10 +12,10 @@ from repro_torch.models.transformer import TransformerLM
 class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
                 f"model family {cfg.family!r} is not ported yet (ROADMAP.md, "
-                "queue 1: item 12 for moe/vlm, item 14 for hybrid/ssm/encdec)")
+                "queue 1, item 14)")
         self.impl = TransformerLM(cfg)
 
     def init(self, gen: torch.Generator, device):

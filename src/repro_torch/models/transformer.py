@@ -1,7 +1,9 @@
-"""Decoder-only dense transformer LM: parameter init and the engine's chunked
-step over a dense per-slot KV cache or a paged one, split and fused KV
-layouts (the port of ``repro/models/transformer.py:108-123`` and
-``:237-408``).
+"""Decoder-only transformer LM (the dense, MoE and VLM families): parameter
+init and the engine's chunked step over a dense per-slot KV cache or a paged
+one, split and fused KV layouts (the port of
+``repro/models/transformer.py:24-50``, ``:108-123`` and ``:237-408``).  The
+VLM family serves its text backbone: the engine's rounds carry token ids
+only, as in the reference.
 
 Parameters are a dict mirroring the JAX pytree, except that ``"layers"`` is
 a list with one dict per layer instead of arrays with a stacked leading
@@ -24,17 +26,30 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _block_init(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
-    return {
+    p: Dict[str, Any] = {
         "attn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         "attn": L.init_attention(gen, cfg, dtype, device),
         "ffn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-        "ffn": L.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device),
     }
+    if cfg.moe is not None and cfg.moe.every == 1:
+        p["moe"] = L.init_moe(gen, cfg, dtype, device)
+        if cfg.moe.dense_residual:
+            p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    else:
+        p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
 
 
 def _block_ffn(p, x, cfg: ModelConfig):
     h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + L.ffn(p["ffn"], h)
+    if "moe" in p:
+        moe_fn = L.moe_ffn_scatter if cfg.moe_impl == "scatter" else L.moe_ffn
+        out = moe_fn(p["moe"], h, cfg)
+        if "ffn" in p:  # arctic's dense residual, a parallel branch
+            out = out + L.ffn(p["ffn"], h)
+    else:
+        out = L.ffn(p["ffn"], h)
+    return x + out
 
 
 class TransformerLM:

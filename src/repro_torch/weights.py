@@ -1,6 +1,6 @@
 """Weights from the JAX package into the port.
 
-``from_jax_params`` takes the JAX dense transformer's parameter pytree (as
+``from_jax_params`` takes the JAX transformer's parameter pytree (as
 built by ``repro.models.transformer.TransformerLM.init``: nested dicts whose
 layer leaves carry a stacked leading layer dim), with every leaf already a
 numpy array, and returns the port's parameter dict: the same names and
@@ -30,16 +30,21 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype).contiguous()
 
 
-def _tree(tree, fn):
+# leaves the reference keeps in f32 whatever the param dtype: the MoE router
+# (``repro/models/layers.py`` ``init_moe``), whose logits are f32
+F32_LEAVES = ("router",)
+
+
+def _tree(tree, fn, name=""):
     if isinstance(tree, dict):
-        return {k: _tree(v, fn) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _tree(v, fn, k) for k, v in tree.items()}
+    return fn(tree, name)
 
 
 def from_jax_params(numpy_tree: Dict[str, Any], cfg: ModelConfig,
                     device="cuda") -> Dict[str, Any]:
     """JAX param pytree (numpy leaves) -> the port's params on ``device`` in
-    ``cfg.param_dtype``."""
+    ``cfg.param_dtype``, the MoE router in f32."""
     dt = torch_dtype(cfg.param_dtype)
     stacked = numpy_tree["layers"]
     n_layers = cfg.n_layers
@@ -50,8 +55,9 @@ def from_jax_params(numpy_tree: Dict[str, Any], cfg: ModelConfig,
     params = {
         "embed": _tensor(numpy_tree["embed"], dt, device),
         "final_norm": _tensor(numpy_tree["final_norm"], dt, device),
-        "layers": [_tree(stacked, lambda a, i=i: _tensor(np.asarray(a)[i], dt,
-                                                         device))
+        "layers": [_tree(stacked, lambda a, name, i=i: _tensor(
+                       np.asarray(a)[i],
+                       torch.float32 if name in F32_LEAVES else dt, device))
                    for i in range(n_layers)],
     }
     if "lm_head" in numpy_tree:
