@@ -169,7 +169,11 @@ Phases, each of which raises (exit code != 0) on failure:
    ``enqueue_ms``, the host ms per round in ``schedule()``, in the input
    copies and in ``dispatch``, and each round's span on the device (CUDA
    events around ``dispatch``), each with its range; greedy tokens of
-   graph against eager printed, not gated.
+   graph against eager printed, not gated.  Last, a split graph engine
+   built, warmed up, serving phase 5's workload and dropped with ``del``
+   while Python's cyclic collector is off must return
+   ``torch.cuda.memory_allocated()`` to within 64 MiB of its level before
+   the build (nothing of it held in a reference cycle).
 22. the MoE and VLM families: arctic-480b's published widths (d_model
    7168, 56/8 heads: group 7, hd 128, 128 experts top-2 of d_ff 4864 plus
    a dense residual FFN, capacity factor 1.25, the scatter dispatch, vocab
@@ -191,6 +195,27 @@ Phases, each of which raises (exit code != 0) on failure:
    llava-next-mistral-7b's text backbone at full width and depth (32
    layers, 14.5 GB), served and gated the same way.  Each engine is freed
    before the next; the phase's seconds are printed.
+23. the whole-prompt entry points of ``TransformerLM`` (no kernel of their
+   own: their attention is plain PyTorch, as it is ``jnp`` in the JAX
+   package) on seeded bf16 weights.  qwen1.5-0.5b at full width and
+   depth: ``Model.prefill`` of 4 prompts of 512 tokens against the same
+   prompts through ``chunked_step_paged`` in 4 chunks of 128 (the paged
+   prefill kernel, 24 launches a chunk), then 8 ``decode`` steps on the
+   prefill cache padded to 520 rows against 8 C = 1 rounds (the paged
+   decode kernel); the last-position logits within the reference's bf16
+   bar (atol 0.25, rtol 0.05) and the greedy ids equal wherever the top-2
+   margin exceeds it; ``train_hidden`` under flash against
+   ``ATTN_IMPL = "naive"`` at B = 1, S = 8,192 within the same bar.
+   mixtral-8x7b's widths (d_model 4096, 32/8 heads, hd 128, 8 experts
+   top-2, window 4,096) at 2 of 32 layers, capacity factor 8.0 so that no
+   expert choice drops: a prefill of 4,352 tokens gives a 4,096-slot ring
+   holding positions 256-4,351 at pos % 4,096; 8 decode steps, each
+   against a whole prefill of the extended prompt under the same bar.
+   Then ``examples/torch_quickstart.py`` (llama3.2-1b at full width) and
+   ``examples/torch_serve_lprs_apc.py`` (qwen1.5-0.5b) as processes of
+   their own: each must exit 0, every request finished.  Prints the
+   prefill ms for 4 x 512 tokens, decode ms a step, flash and naive ms at
+   8,192, peak memory, each beside the card's name and power limit.
 
 The second-to-last line is a JSON object listing every kernel with its
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -1245,7 +1270,11 @@ def fused_swap_kernel_phase(torch):
 
 # -- phases 12-13: the fused layout served, static budget and LPRS -------------
 def record_chunks(sched):
-    """Record the chunk size of every prefill chunk the scheduler commits."""
+    """Record the chunk size of every prefill chunk the scheduler commits.
+    The caller deletes ``sched.schedule`` after the run: the wrapper holds
+    the scheduler's bound method, a reference cycle that would keep the
+    scheduler -- and through its hooks the engine -- alive until the cyclic
+    collector runs."""
     chunks = []
     schedule = sched.schedule
 
@@ -1273,8 +1302,11 @@ def fused_serve_phase(torch, baseline):
     torch.cuda.synchronize()
     engine.bucket_rounds.clear()
     zero_launches()
-    res = serve(reqs, sched, engine, kv_pool=kv_pool, collect_samples=True)
-    torch.cuda.synchronize()
+    try:
+        res = serve(reqs, sched, engine, kv_pool=kv_pool, collect_samples=True)
+        torch.cuda.synchronize()
+    finally:
+        del sched.schedule
     launches = read_launches()
 
     toks = check_outputs(res, reqs, cfg.vocab_size)
@@ -1361,8 +1393,12 @@ def lprs_phase(torch, engine, kv_pool, static):
     pred.predict = counted
     torch.cuda.synchronize()
     zero_launches()
-    res = serve(reqs, sched, engine, kv_pool=kv_pool, collect_samples=True)
-    torch.cuda.synchronize()
+    try:
+        res = serve(reqs, sched, engine, kv_pool=kv_pool, collect_samples=True)
+        torch.cuda.synchronize()
+    finally:
+        # the wrappers hold bound methods of their objects: reference cycles
+        del sched.schedule, pred.predict
     launches = read_launches()
     toks = check_outputs(res, reqs, cfg.vocab_size)
     require(searches[0] > 0, "the LPRS predictor was never called")
@@ -2343,7 +2379,11 @@ def timed_serve(torch, engine, kv_pool, args):
         res = serve(reqs, sched, engine, kv_pool=kv_pool)
         torch.cuda.synchronize()
     finally:
-        del engine._copy_in, engine.dispatch
+        # each wrapper holds a bound method of the object it is set on: a
+        # reference cycle, which for the scheduler (its hooks are the
+        # engine's bound methods) would keep the engine alive until the
+        # cyclic collector runs
+        del engine._copy_in, engine.dispatch, sched.schedule
     toks = check_outputs(res, reqs, engine.model_cfg.vocab_size)
     kv_pool.reset()
     rep = res.report
@@ -2403,10 +2443,55 @@ def serve_pairs(torch, layout, n_pairs):
     return runs
 
 
+# a dropped engine's device memory, back without the cyclic collector: what
+# may stay is per-stream state the process keeps (a cuBLAS workspace per
+# stream the engine's capture ran on, the decode kernels' ticket buffer)
+FREED_SLACK = 64 << 20
+
+
+def freed_without_gc(torch):
+    """Phase 21's memory gate: a split engine with CUDA graphs built, warmed
+    up (its graphs captured) and serving phase 5's workload, then dropped
+    with ``del`` while the cyclic collector is off, must return
+    ``torch.cuda.memory_allocated()`` to within FREED_SLACK of its level
+    before the build: nothing of it is held in a reference cycle.  On a
+    miss, the collector's haul is printed by type before the run fails.
+    Returns the bytes (before, with the engine, after)."""
+    import collections
+
+    torch.cuda.synchronize()
+    gc.disable()
+    try:
+        before = torch.cuda.memory_allocated()
+        engine, kv_pool, args = build_served(torch, "split", True)
+        timed_serve(torch, engine, kv_pool, args)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        del engine, kv_pool
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        if after - before > FREED_SLACK:
+            gc.set_debug(gc.DEBUG_SAVEALL)
+            gc.collect()
+            kinds = collections.Counter(type(o).__name__ for o in gc.garbage)
+            gc.set_debug(0)
+            gc.garbage.clear()
+            log(f"  in reference cycles: {kinds.most_common(20)}; "
+                f"{torch.cuda.memory_allocated()} B allocated after a "
+                "collection")
+    finally:
+        gc.enable()
+    require(after - before <= FREED_SLACK,
+            f"a dropped graph engine left {after - before} B allocated "
+            f"({before} B before its build, {after} B after its del)")
+    return before, held, after
+
+
 def compiled_round_phase(torch):
     """Phase 21: the replayed round bitwise against the eager step at every
     bucket on split, fused and dense; the graphs per engine; a sampled
-    round's replays drawing afresh; serve pairs with and without graphs."""
+    round's replays drawing afresh; serve pairs with and without graphs;
+    a dropped graph engine's memory back without the cyclic collector."""
     for layout in ("split", "fused", "dense"):
         n, warm_g, warm_e, cap_s, pool = bitwise_round_case(torch, layout)
         log(f"  {layout}: replays bitwise equal to the eager step at every "
@@ -2421,6 +2506,11 @@ def compiled_round_phase(torch):
     serve_pairs(torch, "split", GRAPH_PAIRS)
     serve_pairs(torch, "fused", 1)
     serve_pairs(torch, "dense", 1)
+    before, held, after = freed_without_gc(torch)
+    log(f"  memory gate: a split graph engine built, warmed up, served and "
+        f"dropped with the cyclic collector off: {before} B allocated before "
+        f"its build, {held} B with it, {after} B after its del "
+        f"({after - before:+d} B; the gate is {FREED_SLACK} B)")
 
 
 # -- phase 22: the MoE and VLM families served -------------------------------
@@ -2651,7 +2741,6 @@ def moe_vlm_phase(torch):
     from repro_torch.launch import serve as serve_cli
 
     t_phase = time.perf_counter()
-    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     log(f"  device memory in use as the phase starts: "
@@ -2752,6 +2841,289 @@ def moe_vlm_phase(torch):
     del v, v_pool
     torch.cuda.empty_cache()
     log(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phase 23: the whole-prompt prefill and decode -----------------------------
+PD_B, PD_S, PD_CHUNK, PD_STEPS = 4, 512, 128, 8   # qwen1.5-0.5b, full depth
+PD_PAGE = 16
+FLASH_S = 8192          # B = 1: flash runs 8 query blocks of 1,024 over 2
+#                         key blocks of 4,096
+MIXTRAL_LAYERS = 2      # of mixtral-8x7b's 32: 6.3 GB of bf16 weights
+MIXTRAL_S = 4352        # past its sliding window of 4,096
+# no expert choice dropped (tiny_config's factor): a prefill of S tokens and
+# a decode of one group their tokens differently, so at the published 1.25
+# their capacity drops, and so their outputs, may differ legitimately
+MIXTRAL_CAPACITY = 8.0
+# the reference's bf16 bar (atol, rtol), tests/test_engine.py:52-55
+BF16_BAR = (0.25, 0.05)
+EXAMPLES = ("torch_quickstart", "torch_serve_lprs_apc")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def bf16_gate(torch, got, want, what):
+    """``got`` finite and within BF16_BAR of ``want`` everywhere, and each
+    row's greedy id equal to ``want``'s wherever ``want``'s top-2 margin
+    exceeds the bar at its top logit.  Returns (max |d|, rows with such a
+    margin, rows)."""
+    atol, rtol = BF16_BAR
+    g, w = got.float(), want.float()
+    require(bool(torch.isfinite(g).all()), f"{what}: a non-finite value")
+    d = (g - w).abs()
+    over = d > atol + rtol * w.abs()
+    require(not bool(over.any()),
+            f"{what}: {int(over.sum())} values beyond the bf16 bar (max |d| "
+            f"{float(d.max()):.4f})")
+    top = w.topk(2, dim=-1).values
+    clear = top[..., 0] - top[..., 1] > atol + rtol * top[..., 0].abs()
+    same = g.argmax(-1) == w.argmax(-1)
+    require(bool(same[clear].all()),
+            f"{what}: greedy ids differ where the top-2 margin is clear")
+    return float(d.max()), int(clear.sum()), clear.numel()
+
+
+def event_ms(torch, fn):
+    """(fn()'s result, its ms on the card: CUDA events around one call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def qwen_prefill_decode(torch, card):
+    """qwen1.5-0.5b at full width and depth, seeded bf16 weights:
+    ``Model.prefill`` of PD_B prompts of PD_S tokens against the same
+    prompts through ``chunked_step_paged`` in chunks of PD_CHUNK (the paged
+    prefill kernel), then PD_STEPS ``decode`` steps on the prefill cache
+    padded by PD_STEPS rows against C = 1 rounds (the paged decode kernel);
+    each gated by ``bf16_gate`` and the kernels' launches counted over the
+    chunked side alone.  Then ``train_hidden`` under flash (the default)
+    against ``ATTN_IMPL = "naive"`` at B = 1, S = FLASH_S."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    params = model.init(gen, "cuda")
+    B, S, ps = PD_B, PD_S, PD_PAGE
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.resolved_head_dim}; "
+        f"full width and depth, seeded bf16 weights")
+    host = torch.Generator().manual_seed(23)
+    ids = torch.randint(1, cfg.vocab_size, (B, S + PD_STEPS), generator=host,
+                        dtype=torch.int32).cuda()
+    prompt, steps = ids[:, :S], ids[:, S:]
+    with torch.no_grad():
+        model.prefill(params, {"tokens": prompt})           # warm-up
+        (logits, cache), pre_ms = event_ms(
+            torch, lambda: model.prefill(params, {"tokens": prompt}))
+        require(tuple(cache["k"].shape) == (cfg.n_layers, B, S,
+                                             cfg.n_kv_heads,
+                                             cfg.resolved_head_dim),
+                f"prefill cache {tuple(cache['k'].shape)}")
+        pad = (0, 0, 0, 0, 0, PD_STEPS)
+        cache = {n: torch.nn.functional.pad(c, pad) for n, c in cache.items()}
+        dec, dec_ms = [], []
+        for i in range(PD_STEPS):
+            lens = torch.full((B,), S + i, dtype=torch.int32, device="cuda")
+            (out, cache), ms = event_ms(torch, lambda: model.decode(
+                params, steps[:, i:i + 1], cache, lens))
+            dec.append(out)
+            dec_ms.append(ms)
+
+        n_pages = -(-(S + PD_STEPS) // ps)
+        n_phys = B * n_pages + 1                   # the last page: the sink
+        shape = (cfg.n_layers, n_phys, ps, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        pool = {n: torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+                for n in ("k", "v")}
+        tables = torch.randperm(n_phys - 1, generator=host)[: B * n_pages]
+        tables = tables.view(B, n_pages).to(torch.int32).cuda()
+        lens = torch.zeros(B, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        zero_launches()
+        for c in range(0, S, PD_CHUNK):
+            chunk = torch.full((B,), PD_CHUNK, dtype=torch.int32, device="cuda")
+            chunked = model.impl.chunked_step_paged(
+                params, prompt[:, c:c + PD_CHUNK], pool, lens, chunk, tables)
+            lens = lens + chunk
+        one = torch.ones(B, dtype=torch.int32, device="cuda")
+        rounds = []
+        for i in range(PD_STEPS):
+            rounds.append(model.impl.chunked_step_paged(
+                params, steps[:, i:i + 1], pool, lens, one, tables))
+            lens = lens + one
+        torch.cuda.synchronize()
+        launches = read_launches()
+    want = {"paged_prefill_attention": cfg.n_layers * S // PD_CHUNK,
+            "paged_decode_attention": cfg.n_layers * PD_STEPS}
+    require(launches == {n: want.get(n, 0) for n in launches},
+            f"chunked side's launches {launches}, expected {want}")
+    err, clear, rows = bf16_gate(torch, logits, chunked,
+                                 "prefill against the chunked kernel path")
+    log(f"  prefill of {B} x {S} tokens against {S // PD_CHUNK} chunks of "
+        f"{PD_CHUNK} through chunked_step_paged: last-position logits max "
+        f"|d| {err:.4f} within the bf16 bar; greedy ids equal on {clear} of "
+        f"{rows} rows with a clear top-2 margin (every row agrees: "
+        f"{bool((logits.argmax(-1) == chunked.argmax(-1)).all())})")
+    errs = [bf16_gate(torch, d, r, f"decode step {i}")
+            for i, (d, r) in enumerate(zip(dec, rounds))]
+    log(f"  {PD_STEPS} decode steps on the prefill cache padded to "
+        f"{S + PD_STEPS} rows against C = 1 rounds: max |d| "
+        f"{max(e[0] for e in errs):.4f}; greedy ids equal on "
+        f"{sum(e[1] for e in errs)} of {sum(e[2] for e in errs)} rows with a "
+        "clear margin")
+    log(f"  kernel launches on the chunked side: "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    log(f"  prefill {pre_ms:.3f} ms for {B} x {S} tokens "
+        f"({B * S / pre_ms * 1e3:.0f} tok/s); decode "
+        f"{statistics.median(dec_ms):.3f} ms a step (median of {PD_STEPS}; "
+        f"{min(dec_ms):.3f}-{max(dec_ms):.3f}) at B = {B}; {card}")
+    del cache, pool, dec, rounds
+
+    long = {"tokens": torch.randint(1, cfg.vocab_size, (1, FLASH_S),
+                                    generator=host, dtype=torch.int32).cuda()}
+    with torch.no_grad():
+        model.train_hidden(params, long)                     # warm-up
+        flash, flash_ms = event_ms(
+            torch, lambda: model.train_hidden(params, long))
+        impl = L.ATTN_IMPL
+        L.ATTN_IMPL = "naive"
+        try:
+            model.train_hidden(params, long)
+            naive, naive_ms = event_ms(
+                torch, lambda: model.train_hidden(params, long))
+        finally:
+            L.ATTN_IMPL = impl
+    err, _, _ = bf16_gate(torch, flash, naive,
+                          f"train_hidden flash against naive at S={FLASH_S}")
+    log(f"  train_hidden at B = 1, S = {FLASH_S}: flash ({FLASH_S // 1024} "
+        f"query blocks x 2 key blocks) against the exact chunked path: max "
+        f"|d| {err:.4f} within the bf16 bar over {flash.numel()} hidden "
+        f"values; flash {flash_ms:.3f} ms, naive {naive_ms:.3f} ms; {card}")
+    return params
+
+
+def mixtral_ring(torch, card):
+    """mixtral-8x7b's published widths at MIXTRAL_LAYERS layers (capacity
+    factor MIXTRAL_CAPACITY): ``Model.prefill`` of MIXTRAL_S > W tokens
+    gives the W-sized ring with the last W positions at ``pos % W``; then
+    PD_STEPS ``decode`` steps, each gated by ``bf16_gate`` against the last
+    logits of a whole ``Model.prefill`` of the extended prompt."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(
+        full, n_layers=MIXTRAL_LAYERS,
+        moe=dataclasses.replace(full.moe, capacity_factor=MIXTRAL_CAPACITY))
+    W, S, m = cfg.sliding_window, MIXTRAL_S, cfg.moe
+    log(f"  {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads (group {cfg.q_per_kv}), hd {cfg.resolved_head_dim}, "
+        f"{m.n_experts} experts top-{m.top_k} of d_ff {m.d_ff}, sliding "
+        f"window {W}; reduced: n_layers {full.n_layers} -> {cfg.n_layers}, "
+        f"capacity factor {full.moe.capacity_factor} -> {m.capacity_factor} "
+        "(no expert choice dropped, so prefill and decode route alike)")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    t0 = time.perf_counter()
+    params = model.init(gen, "cuda")
+    torch.cuda.synchronize()
+    log(f"  weights {param_bytes(params) / 1e9:.2f} GB (seeded, bf16) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    host = torch.Generator().manual_seed(24)
+    ids = torch.randint(1, cfg.vocab_size, (1, S + PD_STEPS), generator=host,
+                        dtype=torch.int32).cuda()
+    with torch.no_grad():
+        (_, cache), pre_ms = event_ms(
+            torch, lambda: model.prefill(params, {"tokens": ids[:, :S]}))
+        kv = (cfg.n_layers, 1, W, cfg.n_kv_heads, cfg.resolved_head_dim)
+        require(tuple(cache["k"].shape) == tuple(cache["v"].shape) == kv,
+                f"ring cache {tuple(cache['k'].shape)}, expected {kv}")
+        pos = torch.arange(S - W, S, device="cuda", dtype=torch.int32)
+        ring = torch.empty(W, dtype=torch.int32, device="cuda")
+        ring[pos % W] = pos
+        require(tuple(cache["kv_pos"].shape) == (cfg.n_layers, 1, W)
+                and bool((cache["kv_pos"] == ring).all()),
+                "kv_pos does not hold the last W positions at pos % W")
+        errs, dec_ms = [], []
+        for i in range(PD_STEPS):
+            n = S + i
+            lens = torch.full((1,), n, dtype=torch.int32, device="cuda")
+            (out, cache), ms = event_ms(torch, lambda: model.decode(
+                params, ids[:, n:n + 1], cache, lens))
+            dec_ms.append(ms)
+            require(bool((cache["kv_pos"][:, 0, n % W] == n).all()),
+                    f"decode step {i} did not record position {n}")
+            ref, _ = model.prefill(params, {"tokens": ids[:, :n + 1]})
+            errs.append(bf16_gate(torch, out, ref,
+                                  f"ring decode step {i} against a prefill "
+                                  f"of {n + 1} tokens"))
+    log(f"  prefill of {S} tokens: a {W}-slot ring holding positions "
+        f"{S - W}-{S - 1} at pos % {W} in every layer ({pre_ms:.3f} ms); "
+        f"{PD_STEPS} decode steps wrapping it, each against a whole prefill "
+        f"of the extended prompt: max |d| {max(e[0] for e in errs):.4f} "
+        f"within the bf16 bar, greedy ids equal on {sum(e[1] for e in errs)}"
+        f" of {PD_STEPS} steps with a clear margin; decode "
+        f"{statistics.median(dec_ms):.3f} ms a step; {card}")
+
+
+def run_examples(torch):
+    """Each of EXAMPLES as a process of its own on the card (the published
+    width of its model): it must exit 0, which it does only when every
+    request of every run finished.  Returns each one's seconds."""
+    seconds = {}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(ROOT / "examples" /
+                                                  f"{name}.py")],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        seconds[name] = time.perf_counter() - t0
+        for line in res.stdout.splitlines():
+            if "finished" in line or "TTFT" in line or "target" in line:
+                log(f"  [{name}] {line.strip()}")
+        require(res.returncode == 0,
+                f"examples/{name}.py exited {res.returncode}: "
+                f"{res.stderr[-2000:]}")
+    return seconds
+
+
+def prefill_decode_phase(torch):
+    """Phase 23: the whole-prompt entry points of ``TransformerLM`` on the
+    card (qwen1.5-0.5b against the chunked kernel path, flash against
+    naive, mixtral's ring at its real window) and two torch examples."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = qwen_prefill_decode(torch, card)
+    log(f"  qwen's peak device memory: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated; {card}")
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mixtral_ring(torch, card)
+    log(f"  mixtral's peak device memory: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated; {card}")
+    torch.cuda.empty_cache()
+    seconds = run_examples(torch)
+    log(f"  examples exited 0 with every request finished: "
+        + ", ".join(f"{n} in {s:.1f} s" for n, s in seconds.items()))
+    log(f"  phase 23 took {time.perf_counter() - t_phase:.1f} s")
 
 
 # -- --turns: the attention and SwiGLU kernels of two trees in turns ----------
@@ -2931,11 +3303,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     log("== device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    card = smi.splitlines()[0]
-    log(card)
+    log(card_line())
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
         f"count {torch.cuda.device_count()}")
@@ -3033,6 +3401,12 @@ def main() -> int:
     log(f"== the MoE and VLM families: arctic-480b's widths ({ARCTIC_LAYERS} "
         "layers, 128 experts, group 7) and llava-next-mistral-7b, served")
     moe_vlm_phase(torch)
+    torch.cuda.empty_cache()
+
+    log("== the whole-prompt prefill and decode: qwen1.5-0.5b against the "
+        f"chunked kernel path, flash against naive, mixtral-8x7b's ring "
+        f"({MIXTRAL_LAYERS} layers), the torch examples")
+    prefill_decode_phase(torch)
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/paged_decode_attention.py:249",

@@ -1,6 +1,7 @@
-"""Model primitives of the transformer's serving path (dense and MoE FFNs),
-as plain functions on tensors with explicit parameter dicts (the port of
-the matching parts of ``repro/models/layers.py``).
+"""Model primitives of the transformer (norms, RoPE, the whole-sequence
+attention of prefill, decode and training, the dense and MoE FFNs), as plain
+functions on tensors with explicit parameter dicts (the port of the matching
+parts of ``repro/models/layers.py``).
 
 Parameters keep the JAX package's shapes (``wq (D, Hq, hd)``, ``wo (Hq, hd,
 D)``, ...), so weights convert one to one and the tests compare like with
@@ -9,6 +10,8 @@ like.
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
@@ -91,6 +94,189 @@ def apply_rope(x, positions, theta: float, tables=None):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, causal offset, sliding window, padded-cache masking)
+# ---------------------------------------------------------------------------
+
+
+INVALID_POS = -(1 << 30)  # sentinel for unwritten ring-buffer slots
+
+# "auto" (the default): training runs the flash blocked-softmax path and
+# prefill the exact chunked path; "flash" / "naive" force one of them (tests,
+# A/B).  Decode (one query) always takes the exact path.
+ATTN_IMPL = "auto"
+
+_attn_phase = threading.local()
+
+
+@contextmanager
+def attention_phase(phase: str):
+    """"train" (the default) or "prefill": set by the ``Model`` entry points,
+    read by ``attention`` in this thread."""
+    prev = getattr(_attn_phase, "v", "train")
+    _attn_phase.v = phase
+    try:
+        yield
+    finally:
+        _attn_phase.v = prev
+
+
+FLASH_BLOCK_Q = 1024
+FLASH_BLOCK_K = 4096
+
+
+def attention(q, k, v, **kw):
+    """``attention_naive`` for one query, under ``ATTN_IMPL == "naive"`` and
+    in the prefill phase; ``flash_attention`` otherwise.  The two mask
+    differently and round differently in bf16, so which one runs decides
+    the result."""
+    if q.shape[1] == 1 or ATTN_IMPL == "naive":
+        return attention_naive(q, k, v, **kw)
+    if ATTN_IMPL == "flash":
+        return flash_attention(q, k, v, **kw)
+    if getattr(_attn_phase, "v", "train") == "prefill":
+        return attention_naive(q, k, v, **kw)
+    return flash_attention(q, k, v, **kw)
+
+
+def _scaled_queries(q, Hkv: int):
+    """q * 1/sqrt(hd) rounded to q's dtype, (B, Sq, Hkv, g, hd) in f32.  The
+    scale is rounded to q's dtype first, as JAX rounds the weak-typed
+    scalar (on the host: no device tensor a call); the f32 upcast is exact,
+    so the products that follow are the reference's bf16-operand,
+    f32-result products."""
+    B, Sq, Hq, hd = q.shape
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=q.dtype).item()
+    return (q * scale).float().reshape(B, Sq, Hkv, Hq // Hkv, hd)
+
+
+def _positions(q_offset, kv_positions, B: int, Sq: int, Skv: int, device):
+    """Absolute query positions (B, Sq) from ``q_offset`` (a scalar or one
+    per row) and key positions (B, Skv): ``kv_positions``, or 0..Skv-1."""
+    ar = torch.arange(Sq, device=device)[None, :]
+    if isinstance(q_offset, int):       # no device tensor for a scalar
+        q_pos = (ar + q_offset).expand(B, Sq)
+    else:
+        off = torch.as_tensor(q_offset, device=device)
+        q_pos = (ar + off[:, None] if off.ndim else ar + off).expand(B, Sq)
+    if kv_positions is None:
+        k_pos = torch.arange(Skv, device=device)[None, :].expand(B, Skv)
+    else:
+        k_pos = kv_positions
+    return q_pos, k_pos
+
+
+def attention_naive(q, k, v, *, q_offset=0, kv_lens=None, causal: bool = True,
+                    sliding_window: int = 0, kv_positions=None):
+    """Exact GQA attention with flexible masking.
+
+    q (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd).  Query i sits at position
+    ``q_offset + i`` (``q_offset`` a scalar or (B,)); key j at position j,
+    or ``kv_positions[:, j]`` (a sliding-window ring, where ``INVALID_POS``
+    marks an unwritten slot).  The causal mask admits key_pos <= query_pos,
+    the window also needs key_pos > query_pos - window, ``kv_lens`` (B,)
+    admits key INDEX j < kv_lens.  Masked scores are -1e30, so a row with no
+    valid key is the uniform mean of V.  Scores and P.V are f32 products of
+    operands in the inputs' dtype; the probabilities are rounded to V's
+    dtype.  Sq is split into chunks of ``_pick_chunk(Sq)`` queries to bound
+    the score temporaries; the chunks do not change the values.
+    """
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    assert Hq % Hkv == 0
+    qf = _scaled_queries(q, Hkv)
+    q_pos, k_pos = _positions(q_offset, kv_positions, B, Sq, Skv, q.device)
+    kf, vf = k.float(), v.float()
+    key_idx = torch.arange(Skv, device=q.device)
+
+    def block(q_blk, qp):
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, kf)
+        mask = torch.ones((B, q_blk.shape[1], Skv), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= k_pos[:, None, :] <= qp[:, :, None]
+        if sliding_window:
+            mask &= k_pos[:, None, :] > qp[:, :, None] - sliding_window
+        if kv_lens is not None:
+            mask &= key_idx[None, None, :] < kv_lens[:, None, None]
+        scores = torch.where(mask[:, None, None], scores, -1e30)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
+        return torch.einsum("bhgqk,bkhd->bqhgd", probs, vf)
+
+    Qc = _pick_chunk(Sq)
+    out = torch.cat([block(qf[:, i:i + Qc], q_pos[:, i:i + Qc])
+                     for i in range(0, Sq, Qc)], dim=1)
+    return out.reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def _pick_chunk(s: int, target: int = 512) -> int:
+    """Largest divisor of s that is <= target (bounds attention score temps)."""
+    if s <= target:
+        return s
+    for c in range(target, 0, -1):
+        if s % c == 0:
+            return c
+    return s
+
+
+def flash_attention(q, k, v, *, q_offset=0, kv_lens=None, causal: bool = True,
+                    sliding_window: int = 0, kv_positions=None,
+                    block_q: int = 0, block_k: int = 0):
+    """Blocked online-softmax attention, ``attention_naive``'s semantics but
+    never the (Sq, Skv) score matrix: query blocks of
+    ``_pick_chunk(Sq, block_q or FLASH_BLOCK_Q)``, an inner loop over key
+    blocks of ``_pick_chunk(Skv, block_k or FLASH_BLOCK_K)`` carrying the
+    running max ``m``, sum ``l`` and accumulator in f32.  Masked scores are
+    -inf (the max and rescale guarded against a block with no valid key),
+    ``kv_lens`` admits key POSITION < kv_lens, ``l`` sums the f32
+    probabilities and P.V multiplies them rounded to V's dtype; a row with
+    no valid key returns 0."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    assert Hq % Hkv == 0
+    g = Hq // Hkv
+    qf = _scaled_queries(q, Hkv)
+    q_pos, k_pos = _positions(q_offset, kv_positions, B, Sq, Skv, q.device)
+    blk_q = _pick_chunk(Sq, block_q or FLASH_BLOCK_Q)
+    blk_k = _pick_chunk(Skv, block_k or FLASH_BLOCK_K)
+    kv_len_col = None if kv_lens is None else kv_lens[:, None, None]
+
+    def q_chunk(q_blk, qp):
+        m = torch.full((B, blk_q, Hkv, g), -math.inf, device=q.device)
+        l = torch.zeros((B, blk_q, Hkv, g), device=q.device)
+        acc = torch.zeros((B, blk_q, Hkv, g, hd), device=q.device)
+        for j in range(0, Skv, blk_k):
+            kp = k_pos[:, j:j + blk_k]
+            s = torch.einsum("bqhgd,bkhd->bqhgk", q_blk,
+                             k[:, j:j + blk_k].float())
+            mask = torch.ones((B, blk_q, blk_k), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= kp[:, None, :] <= qp[:, :, None]
+            if sliding_window:
+                mask &= kp[:, None, :] > qp[:, :, None] - sliding_window
+            if kv_len_col is not None:
+                mask &= kp[:, None, :] < kv_len_col
+            maskh = mask[:, :, None, None, :]
+            s = torch.where(maskh, s, -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # a row with no valid key so far keeps m == -inf: guard the exp
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            p = torch.where(maskh, torch.exp(s - m_safe[..., None]), 0.0)
+            l = l * alpha + p.sum(dim=-1)
+            p16 = p.to(v.dtype).float()
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqhgk,bkhd->bqhgd", p16, v[:, j:j + blk_k].float())
+            m = m_new
+        l_safe = torch.where(l == 0.0, 1.0, l)
+        return acc / l_safe[..., None]
+
+    out = torch.cat([q_chunk(qf[:, i:i + blk_q], q_pos[:, i:i + blk_q])
+                     for i in range(0, Sq, blk_q)], dim=1)
+    return out.reshape(B, Sq, Hq, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

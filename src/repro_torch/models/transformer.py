@@ -1,13 +1,16 @@
 """Decoder-only transformer LM (the dense, MoE and VLM families): parameter
-init and the engine's chunked step over a dense per-slot KV cache or a paged
-one, split and fused KV layouts (the port of
-``repro/models/transformer.py:24-50``, ``:108-123`` and ``:237-408``).  The
-VLM family serves its text backbone: the engine's rounds carry token ids
-only, as in the reference.
+init, the whole-sequence entry points -- ``train_hidden`` / ``train_logits``,
+``prefill`` (forward + KV cache, a sliding-window ring for SWA configs) and
+``decode`` (one token against that cache) -- and the engine's chunked step
+over a dense per-slot KV cache or a paged one, split and fused KV layouts
+(the port of ``repro/models/transformer.py``).  The engine's rounds carry
+token ids only, so the VLM family serves its text backbone there; the
+whole-sequence entry points take its patch-embedding prefix.
 
 Parameters are a dict mirroring the JAX pytree, except that ``"layers"`` is
 a list with one dict per layer instead of arrays with a stacked leading
-layer dim: PyTorch runs the layer loop in Python, where JAX scanned.
+layer dim: PyTorch runs the layer loop in Python, where JAX scanned.  KV
+caches stay stacked, ``(L, B, S, Hkv, hd)``, as in the reference.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -52,12 +56,69 @@ def _block_ffn(p, x, cfg: ModelConfig):
     return x + out
 
 
+def _block_fwd(p, x, positions, cfg: ModelConfig, collect_kv: bool):
+    """Full-sequence causal block (train / prefill): (x, (k, v) or None)."""
+    h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v = L.qkv_project(p["attn"], h, cfg, positions)
+    attn = L.attention(q, k, v, q_offset=0, causal=True,
+                       sliding_window=cfg.sliding_window)
+    x = x + L.attn_output(p["attn"], attn, cfg)
+    x = _block_ffn(p, x, cfg)
+    return x, ((k, v) if collect_kv else None)
+
+
+def _write_rows(cache, bidx, slot, new):
+    """cache[b, slot[b]] = new[b] in place, except where slot[b] is past the
+    end of the cache: that write is dropped, as JAX's ``.at[].set`` drops
+    it, without a host sync (the clamped row is rewritten with itself)."""
+    n = cache.shape[1]
+    at = slot.clamp(max=n - 1).long()
+    keep = (slot < n).view(-1, *([1] * (new.dim() - 1)))
+    cache[bidx, at] = torch.where(keep, new, cache[bidx, at])
+
+
+def _block_decode(p, x, cache_k, cache_v, lens, cfg: ModelConfig,
+                  kv_positions=None):
+    """Single-token block against a padded KV cache.
+
+    cache_k/v: (B, S, Hkv, hd); lens: (B,) current lengths (the write
+    position of a linear cache; a SWA ring writes slot lens % W and
+    ``kv_positions`` (B, W) holds each slot's absolute position).  The
+    cache and ``kv_positions`` are written IN PLACE (JAX returned new
+    ones); returns ``(x, cache_k, cache_v, kv_positions or None)``.  A
+    linear cache's write at ``lens >= S`` is dropped, and attention then
+    spans the S cached keys (``kv_lens = lens + 1``).
+    """
+    B = x.shape[0]
+    h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q, k_new, v_new = L.qkv_project(p["attn"], h, cfg, lens[:, None])
+
+    W = cache_k.shape[1]
+    slot = lens % W if cfg.sliding_window else lens
+    bidx = torch.arange(B, device=x.device)
+    _write_rows(cache_k, bidx, slot, k_new[:, 0])
+    _write_rows(cache_v, bidx, slot, v_new[:, 0])
+
+    if cfg.sliding_window:
+        _write_rows(kv_positions, bidx, slot, lens.to(kv_positions.dtype))
+        attn = L.attention(q, cache_k, cache_v, q_offset=lens, causal=True,
+                           sliding_window=cfg.sliding_window,
+                           kv_positions=kv_positions)
+    else:
+        kv_positions = None
+        attn = L.attention(q, cache_k, cache_v, q_offset=lens,
+                           kv_lens=lens + 1)
+    x = x + L.attn_output(p["attn"], attn, cfg)
+    x = _block_ffn(p, x, cfg)
+    return x, cache_k, cache_v, kv_positions
+
+
 class TransformerLM:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
 
     # -- params ------------------------------------------------------------
-    def init(self, gen: torch.Generator, device) -> Dict[str, Any]:
+    def init(self, gen: torch.Generator, device="cuda") -> Dict[str, Any]:
         """Seeded random weights with the shapes and init distribution of
         ``repro.models.transformer.TransformerLM.init`` (the draws differ:
         torch's generator is not JAX's)."""
@@ -80,6 +141,131 @@ class TransformerLM:
         if "lm_head" in params:
             return x @ params["lm_head"]
         return x @ params["embed"].t()
+
+    # -- whole-sequence entry points -------------------------------------------
+    # They run on the device of ``params`` (``init``'s ``device``, the card
+    # unless the caller asks for the CPU); input tensors may lie elsewhere.
+    def _embed_inputs(self, params, batch: Dict[str, Any]):
+        """Token embeddings (B, St, D), behind the VLM patch-embedding prefix
+        (B, P, D) when the config has patch tokens and the batch holds
+        ``patch_embeds``."""
+        embed = params["embed"]
+        x = embed[batch["tokens"].to(embed.device).long()]
+        if self.cfg.n_patch_tokens and "patch_embeds" in batch:
+            patches = batch["patch_embeds"].to(device=embed.device,
+                                               dtype=x.dtype)
+            x = torch.cat([patches, x], dim=1)
+        return x
+
+    def _run_layers(self, params, x, positions, collect_kv: bool,
+                    remat: bool):
+        """Every block over the whole sequence: (x, (k, v) stacked
+        (L, B, S, Hkv, hd) or None).  ``remat`` recomputes each layer in the
+        backward pass (``torch.utils.checkpoint``) when grad is enabled."""
+        cfg = self.cfg
+        ks, vs = [], []
+        for lp in params["layers"]:
+            if remat and torch.is_grad_enabled():
+                x, kv = checkpoint(_block_fwd, lp, x, positions, cfg,
+                                   collect_kv, use_reentrant=False)
+            else:
+                x, kv = _block_fwd(lp, x, positions, cfg, collect_kv)
+            if collect_kv:
+                ks.append(kv[0])
+                vs.append(kv[1])
+        return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+    @staticmethod
+    def _positions(x):
+        B, S = x.shape[:2]
+        return torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+    def unembed_weight(self, params):
+        if "lm_head" in params:
+            return params["lm_head"], "dv"
+        return params["embed"], "vd"
+
+    def train_hidden(self, params, batch: Dict[str, Any], remat: bool = True):
+        """The final-normed hidden states (B, S, D) of the whole sequence
+        (patch positions first for the VLM family)."""
+        x = self._embed_inputs(params, batch)
+        x, _ = self._run_layers(params, x, self._positions(x),
+                                collect_kv=False, remat=remat)
+        return L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+
+    def train_logits(self, params, batch: Dict[str, Any], remat: bool = True):
+        return self._unembed(params, self.train_hidden(params, batch, remat))
+
+    def prefill(self, params, batch: Dict[str, Any]):
+        """Forward over the whole prompt: (last-position logits (B, V), cache).
+
+        The cache is {"k", "v"} ``(L, B, S, Hkv, hd)`` -- exactly S rows, so
+        a ``decode`` at ``lens == S`` drops its write -- or, for a
+        sliding-window config, a W-sized ring with {"kv_pos"} ``(L, B, W)``
+        int32: the last W positions at slot ``pos % W`` when S >= W, else
+        positions 0..S-1 in place and ``INVALID_POS`` after them.
+        """
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch)
+        B, S, _ = x.shape
+        x, (ks, vs) = self._run_layers(params, x, self._positions(x),
+                                       collect_kv=True, remat=False)
+        x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+        logits = self._unembed(params, x)[:, 0]
+        if not cfg.sliding_window:
+            return logits, {"k": ks, "v": vs}
+        W = cfg.sliding_window
+        dev = x.device
+        if S >= W:
+            pos = torch.arange(S - W, S, device=dev)
+            slots = pos % W
+            ks_r = torch.zeros_like(ks[:, :, :W])
+            vs_r = torch.zeros_like(vs[:, :, :W])
+            ks_r[:, :, slots] = ks[:, :, S - W:]
+            vs_r[:, :, slots] = vs[:, :, S - W:]
+            kv_pos = torch.zeros((B, W), dtype=torch.int32, device=dev)
+            kv_pos[:, slots] = pos.to(torch.int32)[None, :]
+        else:
+            pad = (0, 0, 0, 0, 0, W - S)
+            ks_r = torch.nn.functional.pad(ks, pad)
+            vs_r = torch.nn.functional.pad(vs, pad)
+            kv_pos = torch.full((B, W), L.INVALID_POS, dtype=torch.int32,
+                                device=dev)
+            kv_pos[:, :S] = torch.arange(S, dtype=torch.int32, device=dev)
+        # one row per layer: decode writes each layer's own in place
+        kv_pos = kv_pos[None].repeat(cfg.n_layers, 1, 1)
+        return logits, {"k": ks_r, "v": vs_r, "kv_pos": kv_pos}
+
+    def decode(self, params, tokens, cache, lens):
+        """One token per sequence: tokens (B, 1); cache as ``prefill``
+        returns it (a linear cache may be longer than the prompt); lens (B,)
+        tokens already cached.  The cache dict's tensors are updated IN
+        PLACE and the dict is returned with the logits (B, V)."""
+        cfg = self.cfg
+        embed = params["embed"]
+        x = embed[tokens.to(embed.device).long()]
+        lens = lens.to(embed.device)
+        has_pos = "kv_pos" in cache
+        for l, lp in enumerate(params["layers"]):
+            x, *_ = _block_decode(
+                lp, x, cache["k"][l], cache["v"][l], lens, cfg,
+                kv_positions=cache["kv_pos"][l] if has_pos else None)
+        x = L.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+        return self._unembed(params, x), cache
+
+    def cache_struct(self, batch: int, seq_len: int):
+        """The shapes and dtypes of ``prefill``'s cache, as tensors on the
+        meta device (no storage)."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.param_dtype)
+        S = cfg.sliding_window if cfg.sliding_window else seq_len
+        shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+        c = {"k": torch.empty(shape, dtype=dt, device="meta"),
+             "v": torch.empty(shape, dtype=dt, device="meta")}
+        if cfg.sliding_window:
+            c["kv_pos"] = torch.empty((cfg.n_layers, batch, S),
+                                      dtype=torch.int32, device="meta")
+        return c
 
     # -- the engine round ----------------------------------------------------
     def _round(self, params, tokens, positions, write_mask, chunk_lens,

@@ -6,7 +6,8 @@ layer leaves carry a stacked leading layer dim), with every leaf already a
 numpy array, and returns the port's parameter dict: the same names and
 per-layer shapes, with ``"layers"`` a list of per-layer dicts.  The caller
 converts the arrays (``jax.tree_util.tree_map(np.asarray, params)``), so this
-module needs no JAX.
+module needs no JAX.  ``cache_from_jax`` does the same for the cache of the
+reference's whole-prompt ``prefill``.
 """
 from __future__ import annotations
 
@@ -63,6 +64,18 @@ def from_jax_params(numpy_tree: Dict[str, Any], cfg: ModelConfig,
     if "lm_head" in numpy_tree:
         params["lm_head"] = _tensor(numpy_tree["lm_head"], dt, device)
     return params
+
+
+def cache_from_jax(numpy_cache: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """The JAX ``prefill`` cache (numpy ``k`` and ``v`` of shape (L, B, S,
+    Hkv, hd), and ``kv_pos`` (L, B, W) for a ring) -> the port's, in the
+    arrays' own dtypes on ``device``: what ``TransformerLM.decode`` takes."""
+    out = {}
+    for name, a in numpy_cache.items():
+        dt = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+              "int32": torch.int32}[np.asarray(a).dtype.name]
+        out[name] = _tensor(a, dt, device)
+    return out
 
 
 def _leaves(tree):

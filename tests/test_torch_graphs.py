@@ -24,9 +24,15 @@ checked here:
     dense);
 (g) a sampling engine (temperature > 0, the graphs' registered generator
     on a card) warms up and serves on the CPU: an idle lane's NaN logits
-    no longer make ``torch.multinomial`` raise.
+    no longer make ``torch.multinomial`` raise;
+(h) an engine that served, on each layout and loop, is freed as soon as
+    its last reference goes, with Python's cyclic collector off: nothing
+    of it sits in a reference cycle (``chip_smoke.py`` phase 21 gates the
+    same with graphs, by the card's allocated bytes).
 """
 import contextlib
+import gc
+import weakref
 
 import jax
 import numpy as np
@@ -382,3 +388,27 @@ def test_sampling_engine_warms_up_and_serves_on_the_cpu():
                          for _ in range(200)])
     assert ((draws >= 0) & (draws < 50)).all()
     assert len(set(draws[:, 1].tolist())) > 20      # uniform over 50
+
+
+@pytest.mark.parametrize("pipelined", [True, False], ids=["pipelined", "sync"])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_dropped_engine_is_freed_without_the_cyclic_collector(layout,
+                                                              pipelined):
+    cfg = tiny_config("qwen1.5-0.5b")
+    gc.collect()
+    gc.disable()
+    try:
+        eng = TorchEngine(cfg, EngineConfig(pipelined=pipelined,
+                                            **LAYOUTS[layout], **ENGINE),
+                          device="cpu")
+        eng.warmup()
+        reqs = sharegpt_like(WorkloadSpec(**WORKLOAD))
+        attach_prompt_tokens(reqs, cfg.vocab_size)
+        res = serve(reqs, ChunkedPrefillScheduler(SchedulerConfig(**SCHED)),
+                    eng)
+        assert res.report.n_finished == len(reqs)
+        ref = weakref.ref(eng)
+        del eng, res
+        assert ref() is None
+    finally:
+        gc.enable()
