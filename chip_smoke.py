@@ -216,6 +216,42 @@ Phases, each of which raises (exit code != 0) on failure:
    their own: each must exit 0, every request finished.  Prints the
    prefill ms for 4 x 512 tokens, decode ms a step, flash and naive ms at
    8,192, peak memory, each beside the card's name and power limit.
+24. training (no kernel of its own: the loss, AdamW and the train step
+   are plain ``jnp`` in the JAX package).  ``repro_torch.launch.train.
+   train`` at llama3.2-1b's full width (16 layers, d_model 2048, vocab
+   128,256, tied embeddings; seeded bf16 weights, f32 grads and moments),
+   B = 8, S = 128, 8 steps, a checkpoint every 4 steps under the temporary
+   directory: every loss finite and the last below the first; the median
+   ms a step over steps 2-8, tokens/s and peak memory printed.  Then the
+   step-8 checkpoint is deleted and a run with ``resume=True`` under the
+   same steps must restore the params, moments and step BITWISE as the
+   step-4 save held them, and reach the first run's losses at steps 4-7
+   within the reference's rtol 2e-2 (printed: whether bitwise; the phase
+   does not set ``torch.use_deterministic_algorithms``).  ``loss_and_grad``
+   at 4 microbatches against 1 on one full-width batch: every leaf's max
+   |g4 - g1| / max |g1| < 0.05 (tests/test_training.py's bar).  Tiny
+   qwen1.5-0.5b in f32, 3 steps on the card and on the CPU from the same
+   weights: losses within 1e-4 relative (TF32 off).
+   ``examples/torch_train_tiny.py`` as a process must exit 0.  No kernel
+   may launch.
+25. the hybrid, xLSTM and Whisper families (no kernel of their own) on
+   seeded bf16 weights: xlstm-1.3b at full width and depth (B = 2, S =
+   512), whisper-large-v3 at full width and depth (B = 2, 64 tokens, 1,500
+   seeded frames) and jamba-1.5-large-398b's widths cut to one group of 8
+   layers and 4 of its 16 experts (capacity factor 2.0: no choice drops),
+   B = 1, S = 512; printed as reduced.  ``Model.prefill``, then 8
+   ``decode`` steps (K/V caches padded by 8 rows), each against the last
+   logits of a whole ``Model.prefill`` of the extended prompt within the
+   bf16 bar, greedy ids equal where the top-2 margin is clear (whisper,
+   jamba).  xLSTM's stack amplifies rounding, so its whole-model
+   difference is printed beside two valid prefills' (mLSTM chunks of 256
+   and 128), and every one of its 48 blocks is gated instead: fed the same
+   input both ways, 8 one-token steps from the state of a 512-token run
+   within the bf16 bar of the block over 520 tokens.  One ``loss`` and its
+   backward for xLSTM and whisper: finite, grad norm > 0.  Prefill ms,
+   decode ms a step, loss + backward ms and peak memory printed beside the
+   card's line; each model is freed before the next.  No kernel may
+   launch.
 
 The second-to-last line is a JSON object listing every kernel with its
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -239,8 +275,11 @@ it.  Then prints, per kernel and shape, both sides' times and this / other.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3126,6 +3165,514 @@ def prefill_decode_phase(torch):
     log(f"  phase 23 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 24: training ------------------------------------------------------
+TRAIN_ARCH = "llama3.2-1b"      # the train CLI's default arch, at full width
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 8, 8, 128
+TRAIN_CKPT_EVERY = 4
+MICRO_BAR = 0.05                # tests/test_training.py:41-54
+RESTART_RTOL = 2e-2             # tests/test_training.py (the restart test)
+CARD_CPU_RTOL = 1e-4
+CARD_CPU_STEPS = 3
+
+
+def host_copy(tree) -> list:
+    from repro_torch.tree import tree_leaves
+    return [t.detach().to("cpu", copy=True) for t in tree_leaves(tree)]
+
+
+def train_run(torch, ckpt_dir, *, resume, step_ms, saved, restored,
+              stash_at=None):
+    """``repro_torch.launch.train.train`` at full width on the card, each
+    step timed (synchronised), the state saved at step ``stash_at`` and
+    every restored state copied to the host as they happen.  Returns the
+    losses."""
+    import repro_torch.launch.train as T
+    from repro_torch.distributed.checkpoint import CheckpointManager
+
+    real_make, real_save = T.make_train_step, CheckpointManager.save
+    real_restore = CheckpointManager.restore
+
+    def make(model, cfg):
+        fn = real_make(model, cfg)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def save(self, step, state, **kw):
+        if step == stash_at:
+            saved[step] = host_copy(state)
+        return real_save(self, step, state, **kw)
+
+    def restore(self, template, *args, **kw):
+        step, state = real_restore(self, template, *args, **kw)
+        restored[step] = host_copy(state)
+        return step, state
+
+    T.make_train_step, CheckpointManager.save = make, save
+    CheckpointManager.restore = restore
+    try:
+        params, losses = T.train(
+            TRAIN_ARCH, tiny=False, steps=TRAIN_STEPS, global_batch=TRAIN_B,
+            seq_len=TRAIN_S, ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY,
+            resume=resume, log_every=TRAIN_STEPS, device="cuda")
+    finally:
+        T.make_train_step, CheckpointManager.save = real_make, real_save
+        CheckpointManager.restore = real_restore
+    del params
+    return losses
+
+
+def micro_check(torch, card):
+    """``loss_and_grad`` at 4 microbatches against 1 on one full-width batch
+    (fresh seeded weights): each leaf within MICRO_BAR of its largest grad."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.train_step import TrainConfig, loss_and_grad
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(24), "cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
+        DataConfig(cfg.vocab_size, TRAIN_B, TRAIN_S)).batch_at(0).items()}
+    (l1, _, g1), ms1 = event_ms(torch, lambda: loss_and_grad(
+        model, params, batch, TrainConfig(n_microbatches=1)))
+    g1 = tree_leaves(g1)
+    (l4, _, g4), ms4 = event_ms(torch, lambda: loss_and_grad(
+        model, params, batch, TrainConfig(n_microbatches=4)))
+    worst = 0.0
+    for a, b in zip(g1, tree_leaves(g4)):
+        d = float((a - b).abs().max() / (a.abs().max() + 1e-6))
+        worst = max(worst, d)
+    require(worst < MICRO_BAR, f"4 microbatches against 1: a leaf's max "
+            f"|g4 - g1| / max |g1| is {worst:.4f} (bar {MICRO_BAR})")
+    log(f"  microbatches: loss_and_grad at B = {TRAIN_B}, S = {TRAIN_S}: "
+        f"loss {l1.item():.5f} (1 microbatch) / {l4.item():.5f} (4); worst "
+        f"leaf max |g4 - g1| / max |g1| {worst:.5f} < {MICRO_BAR} over "
+        f"{len(g1)} leaves; {ms1:.1f} ms / {ms4:.1f} ms; {card}")
+
+
+def card_cpu_losses(torch, device):
+    """CARD_CPU_STEPS train steps of tiny qwen1.5-0.5b in f32 on
+    ``device`` from weights drawn on the CPU (the same on both sides), with
+    the train driver's optimizer settings: the losses."""
+    from repro_torch.configs import tiny_config
+    from repro_torch.models.model import build_model
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import (
+        TrainConfig, init_train_state, make_train_step,
+    )
+    from repro_torch.tree import tree_map
+
+    cfg = tiny_config("qwen1.5-0.5b").with_(param_dtype="float32")
+    model = build_model(cfg)
+    steps = CARD_CPU_STEPS
+    tcfg = TrainConfig(optimizer=AdamWConfig(
+        lr=3e-4, weight_decay=0.1, grad_clip_norm=1.0,
+        warmup_steps=max(1, steps // 20), total_steps=steps))
+    params, opt = init_train_state(model, torch.Generator().manual_seed(24),
+                                   tcfg, "cpu")
+    params, opt = tree_map(lambda t: t.to(device), (params, opt))
+    step = make_train_step(model, tcfg)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 8, 64))
+    losses = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch_at(i).items()}
+        params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"].item())
+    return losses
+
+
+def training_phase(torch):
+    """Phase 24: the train driver at llama3.2-1b's full width (the timed
+    run doubles as the uninterrupted run of the restart check), the
+    microbatch gate, the restart gates, the card against the CPU, and
+    ``examples/torch_train_tiny.py``."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    torch.cuda.empty_cache()
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    zero_launches()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(ckpt_dir).free
+        log(f"  {TRAIN_ARCH} at full width (16 layers, d_model 2048, 32/8 "
+            f"heads, hd 64, d_ff 8,192, vocab 128,256, tied embeddings), "
+            f"seeded bf16 weights, f32 grads and moments; B = {TRAIN_B}, "
+            f"S = {TRAIN_S}, {TRAIN_STEPS} steps, a checkpoint every "
+            f"{TRAIN_CKPT_EVERY} into {ckpt_dir} ({free / 1e9:.0f} GB free)")
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, saved, restored = [], {}, {}
+        at = TRAIN_STEPS - TRAIN_CKPT_EVERY
+        full = train_run(torch, ckpt_dir, resume=False, step_ms=step_ms,
+                         saved=saved, restored=restored, stash_at=at)
+        peak = torch.cuda.max_memory_allocated()
+        require(all(math.isfinite(x) for x in full), f"losses {full}")
+        require(full[-1] < full[0], f"the loss did not fall: {full}")
+        ms = statistics.median(step_ms[1:])
+        log(f"  losses {' '.join(f'{x:.4f}' for x in full)}")
+        log(f"  train step {ms:.1f} ms (median of steps 2-{TRAIN_STEPS}; "
+            f"{min(step_ms[1:]):.1f}-{max(step_ms[1:]):.1f}; step 1 "
+            f"{step_ms[0]:.1f}), {TRAIN_B * TRAIN_S / ms * 1e3:.0f} tokens/s, "
+            f"peak {peak / 1e9:.2f} GB allocated; {card}")
+
+        # restart: the last checkpoint deleted, a resume under the same steps
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{TRAIN_STEPS:010d}"))
+        held = saved.pop(at)
+        tail = train_run(torch, ckpt_dir, resume=True, step_ms=[],
+                         saved=saved, restored=restored)
+        require(list(restored) == [at], f"restored steps {list(restored)}")
+        got = restored[at]
+        require(len(got) == len(held) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(held, got)),
+            "the restored params, moments and step differ from the save's")
+        want = full[at:]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(tail, want))
+        require(len(tail) == len(want) and rel <= RESTART_RTOL,
+                f"resumed losses {tail} against {want}")
+        log(f"  restart: the step-{TRAIN_STEPS} checkpoint deleted, resumed "
+            f"from step {at}: {len(held)} leaves (params, moments, step) "
+            f"bitwise what the save held; losses {at}-{TRAIN_STEPS - 1} "
+            f"{' '.join(f'{x:.4f}' for x in tail)}, max relative difference "
+            f"{rel:.3g} (bar {RESTART_RTOL}; bitwise: {tail == want}; run "
+            "without torch.use_deterministic_algorithms: the embedding and "
+            "gather backward accumulate with atomics)")
+        del held, got, saved, restored
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    micro_check(torch, card)
+    torch.cuda.empty_cache()
+
+    on_card = card_cpu_losses(torch, "cuda")
+    on_cpu = card_cpu_losses(torch, "cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(on_card, on_cpu))
+    require(rel <= CARD_CPU_RTOL,
+            f"card losses {on_card} against the CPU's {on_cpu}")
+    log(f"  tiny qwen1.5-0.5b f32, {CARD_CPU_STEPS} steps: card "
+        f"{' '.join(f'{x:.6f}' for x in on_card)} against CPU "
+        f"{' '.join(f'{x:.6f}' for x in on_cpu)}: max relative difference "
+        f"{rel:.3g} (bar {CARD_CPU_RTOL}; TF32 off)")
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable,
+                          str(ROOT / "examples" / "torch_train_tiny.py")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for line in res.stdout.splitlines():
+        if "loss:" in line or "resumed" in line or line.strip() == "ok":
+            log(f"  [torch_train_tiny] {line.strip()}")
+    require(res.returncode == 0, f"examples/torch_train_tiny.py exited "
+            f"{res.returncode}: {res.stderr[-2000:]}")
+    log(f"  examples/torch_train_tiny.py exited 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launched = {n: c for n, c in read_launches().items() if c}
+    require(not launched, f"kernels launched by the training path: {launched}")
+    log("  no kernel launched (the training path is plain PyTorch, as it is "
+        f"jnp in the reference); phase 24 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phase 25: the hybrid, xLSTM and Whisper families -------------------------
+FAM_STEPS = 8
+XLSTM_B, XLSTM_S = 2, 512
+WHISPER_B, WHISPER_S = 2, 64
+JAMBA_LAYERS = 8        # of jamba's 72: one group (1 attention + 7 mamba)
+JAMBA_EXPERTS = 4       # of 16: one group at 16 holds 77 GB of experts
+JAMBA_B, JAMBA_S = 1, 512
+# an xLSTM block's decode against its whole run, over its mixer's largest
+# |output| (``mixer_ratio``), by the params' dtype: between the sound
+# blocks' worst and the planted fault's least, each about 10x away, on an
+# H100 (bf16 0.036 and 0.92, f32 7.9e-5 and 0.93)
+XLSTM_BLOCK_BAR = {"bfloat16": 0.1, "float32": 1e-3}
+
+
+def pad_rows(torch, cache, names, n):
+    """The named K/V caches (sequence on axis 2) padded by n zero rows."""
+    pad = (0, 0, 0, 0, 0, n)
+    return {k: (torch.nn.functional.pad(v, pad) if k in names else v)
+            for k, v in cache.items()}
+
+
+def beyond_bar(torch, got, want):
+    """(max |got - want|, the number of values beyond BF16_BAR)."""
+    atol, rtol = BF16_BAR
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), int((d > atol + rtol * want.float().abs()).sum())
+
+
+def mixer_ratio(torch, got, want, inp):
+    """max |got - want| over the largest |want - inp|: a block's error
+    relative to its mixer's own output (the residual input cancels)."""
+    own = (want.float() - inp.float()).abs().max()
+    return float((got.float() - want.float()).abs().max() / own)
+
+
+def xlstm_block_check(torch, card, cfg, params, ids, S):
+    """Every xLSTM block at full width and depth, each fed the same input
+    both ways: the block over the whole prompt of S + FAM_STEPS tokens (its
+    input the previous block's output over that prompt) against the block
+    over the first S tokens and then FAM_STEPS one-token steps from the
+    state it returned.  Each step is held within the params' dtype's
+    XLSTM_BLOCK_BAR by ``mixer_ratio``; a planted fault, the first step
+    taken from a reset state (the history dropped), must exceed the bar in
+    every block, so the gate can fail."""
+    from repro_torch.models import xlstm as X
+
+    dtype = str(params["embed"].dtype)[6:]
+    bar = XLSTM_BLOCK_BAR[dtype]
+    x = params["embed"][ids[:, :S + FAM_STEPS].long()]
+    sound, fault = [], []
+    for g in range(len(params["slstm"])):
+        blocks = ([(X.mlstm_mixer, lp) for lp in params["mlstm"][g]]
+                  + [(X.slstm_mixer, params["slstm"][g])])
+        for fn, lp in blocks:
+            whole, _ = fn(lp, x, cfg)
+            _, st = fn(lp, x[:, :S], cfg)
+            worst = 0.0
+            for i in range(FAM_STEPS):
+                step, st = fn(lp, x[:, S + i:S + i + 1], cfg, st)
+                require(bool(torch.isfinite(step).all()),
+                        f"xLSTM {dtype} block {len(sound)} step {i}: a "
+                        "non-finite value")
+                worst = max(worst, mixer_ratio(torch, step[:, 0],
+                                               whole[:, S + i], x[:, S + i]))
+            reset, _ = fn(lp, x[:, S:S + 1], cfg)
+            fault.append(mixer_ratio(torch, reset[:, 0], whole[:, S],
+                                     x[:, S]))
+            sound.append(worst)
+            x = whole
+    n = len(sound)
+    log(f"  {dtype}: each of the {n} blocks, fed the same input both ways: "
+        f"{FAM_STEPS} one-token steps from the state of a {S}-token run "
+        f"against the block over all {S + FAM_STEPS} tokens, max |d| over "
+        f"the mixer's largest |output|: worst {max(sound):.3g} (block "
+        f"{sound.index(max(sound))}; median over blocks "
+        f"{statistics.median(sound):.3g}), bar {bar}; the planted fault "
+        f"(step 0 from a reset state): least {min(fault):.4f} (block "
+        f"{fault.index(min(fault))}; median {statistics.median(fault):.4f}); "
+        f"{card}")
+    require(max(sound) <= bar,
+            f"xLSTM {dtype} block {sound.index(max(sound))}: decode against "
+            f"the whole run {max(sound):.3g} of the mixer's output (bar {bar})")
+    require(min(fault) > bar,
+            f"xLSTM {dtype} block {fault.index(min(fault))}: a reset state "
+            f"reads {min(fault):.3g}, within the bar {bar}: the gate cannot "
+            "see it")
+
+
+def xlstm_checks(torch, card, cfg, model, params, ids, B, S):
+    """xLSTM's checks beyond ``family_run``'s: the input gate's spread at
+    block 0; then on its bf16 weights and on the same weights upcast to
+    f32, two valid chunkings of one prefill (printed), in f32 the whole
+    model's last of FAM_STEPS decode steps against a whole prefill of the
+    extended prompt (printed beside that spread), and
+    ``xlstm_block_check`` (gated); the f32 loss's grad norm."""
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.train_step import TrainConfig, loss_and_grad
+    from repro_torch.tree import tree_map
+
+    half = build_model(dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, chunk_size=cfg.ssm.chunk_size // 2)))
+    p32 = tree_map(lambda t: t.float(), params)
+    with torch.no_grad():
+        lp = params["mlstm"][0][0]
+        h = rms_norm(params["embed"][ids[:, :S].long()], lp["norm"],
+                     cfg.norm_eps).float()
+        log(f"  log_i = rms_norm(x) @ wi at block 0: std "
+            f"{float((h @ lp['wi']).std()):.3f} (wi drawn at scale 0.1 with no "
+            f"fan-in factor, as the reference's: 0.1 * sqrt({cfg.d_model}) = "
+            f"{0.1 * math.sqrt(cfg.d_model):.3f})")
+        for p in (params, p32):
+            dtype = str(p["embed"].dtype)[6:]
+            a, cache = model.prefill(p, {"tokens": ids[:, :S]})
+            b, _ = half.prefill(p, {"tokens": ids[:, :S]})
+            err, over = beyond_bar(torch, b, a)
+            log(f"  {dtype}: two valid prefills of the same {S} tokens, mLSTM "
+                f"chunks of {cfg.ssm.chunk_size} and {cfg.ssm.chunk_size // 2}"
+                f": max |d| {err:.4f}, {over} logits beyond the bf16 bar "
+                "(printed, not gated)")
+            if p is p32:
+                for n in range(S, S + FAM_STEPS):
+                    lens = torch.full((B,), n, dtype=torch.int32,
+                                      device="cuda")
+                    out, cache = model.decode(p, ids[:, n:n + 1], cache, lens)
+                ref, _ = model.prefill(p, {"tokens": ids[:, :S + FAM_STEPS]})
+                err, over = beyond_bar(torch, out, ref)
+                log(f"  f32: the whole model's last decode step against a "
+                    f"whole prefill of {S + FAM_STEPS} tokens (printed, not "
+                    f"gated): max |d| {err:.4f}, {over} of "
+                    f"{B * cfg.vocab_size} logits beyond the bf16 bar")
+            del cache
+            xlstm_block_check(torch, card, cfg, p, ids, S)
+    bt = {"tokens": ids[:, :S], "labels": ids[:, 1:S + 1]}
+    (loss, _, grads), ms = event_ms(torch, lambda: loss_and_grad(
+        model, p32, bt, TrainConfig()))
+    gn = float(global_norm(grads))
+    require(math.isfinite(loss.item()) and math.isfinite(gn) and gn > 0,
+            f"{cfg.name} f32 loss {loss.item()}, grad norm {gn}")
+    log(f"  f32 loss + backward at B = {B}, S = {S}: loss {loss.item():.4f}, "
+        f"grad norm {gn:.6g}, {ms:.1f} ms; {card}")
+    del grads, p32
+
+
+def family_run(torch, card, cfg, B, S, extra, pad_names, backward,
+               gate_whole=True):
+    """Seeded bf16 weights of ``cfg`` on the card: ``Model.prefill`` of B
+    prompts of S tokens, then FAM_STEPS ``decode`` steps on its cache (the
+    K/V caches padded by FAM_STEPS rows), each gated by ``bf16_gate``
+    against the last logits of a whole ``Model.prefill`` of the extended
+    prompt (with ``gate_whole=False``, xLSTM's, only the last step, printed,
+    and ``xlstm_checks`` run); then, if ``backward``, one ``loss`` and its
+    backward (``loss_and_grad``): finite, grad norm > 0.  Frees the
+    model."""
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.train_step import TrainConfig, loss_and_grad
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(25), "cuda")
+    torch.cuda.synchronize()
+    log(f"  weights {param_bytes(params) / 1e9:.2f} GB (seeded, bf16) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    host = torch.Generator().manual_seed(25)
+    ids = torch.randint(1, cfg.vocab_size, (B, S + FAM_STEPS + 1),
+                        generator=host, dtype=torch.int32).cuda()
+
+    def batch(n):
+        return {"tokens": ids[:, :n], **extra}
+
+    with torch.no_grad():
+        model.prefill(params, batch(S))                     # warm-up
+        (_, cache), pre_ms = event_ms(torch,
+                                      lambda: model.prefill(params, batch(S)))
+        cache = pad_rows(torch, cache, pad_names, FAM_STEPS)
+        errs, dec_ms = [], []
+        for i in range(FAM_STEPS):
+            n = S + i
+            lens = torch.full((B,), n, dtype=torch.int32, device="cuda")
+            (out, cache), ms = event_ms(torch, lambda: model.decode(
+                params, ids[:, n:n + 1], cache, lens))
+            dec_ms.append(ms)
+            require(bool(torch.isfinite(out).all()),
+                    f"{cfg.name} decode step {i}: a non-finite logit")
+            if gate_whole:
+                ref, _ = model.prefill(params, batch(n + 1))
+                errs.append(bf16_gate(torch, out, ref,
+                                      f"{cfg.name} decode step {i} against "
+                                      f"a prefill of {n + 1} tokens"))
+            elif i == FAM_STEPS - 1:
+                ref, _ = model.prefill(params, batch(n + 1))
+                errs.append(beyond_bar(torch, out, ref))
+    del cache
+    if gate_whole:
+        log(f"  prefill of {B} x {S} tokens {pre_ms:.3f} ms ({card}); "
+            f"{FAM_STEPS} decode steps, each against a whole prefill of the "
+            f"extended prompt: max |d| {max(e[0] for e in errs):.4f} within "
+            f"the bf16 bar, greedy ids equal on {sum(e[1] for e in errs)} of "
+            f"{sum(e[2] for e in errs)} rows with a clear margin")
+    else:
+        log(f"  prefill of {B} x {S} tokens {pre_ms:.3f} ms ({card}); the "
+            f"whole model's last bf16 decode step against a whole prefill "
+            f"of {S + FAM_STEPS} tokens (printed, not gated): max |d| "
+            f"{errs[0][0]:.4f}, {errs[0][1]} of {B * cfg.vocab_size} logits "
+            "beyond the bf16 bar")
+    log(f"  decode {statistics.median(dec_ms):.3f} ms a step (median; "
+        f"{min(dec_ms):.3f}-{max(dec_ms):.3f}); {card}")
+    if backward:
+        b = {**batch(S), "labels": ids[:, 1:S + 1]}
+        model.loss(params, b)                               # warm-up
+        (loss, _, grads), ms = event_ms(torch, lambda: loss_and_grad(
+            model, params, b, TrainConfig()))
+        gn = float(global_norm(grads))
+        require(math.isfinite(loss.item()) and math.isfinite(gn) and gn > 0,
+                f"{cfg.name} loss {loss.item()}, grad norm {gn}")
+        log(f"  loss + backward at B = {B}, S = {S}: loss {loss.item():.4f}, "
+            f"grad norm {gn:.6g}, {ms:.1f} ms; {card}")
+        del grads
+    else:
+        log("  loss + backward: not run at this size")
+    if not gate_whole:
+        xlstm_checks(torch, card, cfg, model, params, ids, B, S)
+    log(f"  {cfg.name}'s peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated; {card}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def families_phase(torch):
+    """Phase 25: xlstm-1.3b and whisper-large-v3 at full width and depth,
+    jamba-1.5-large-398b's widths at one group with 4 experts."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    zero_launches()
+
+    cfg = get_config("xlstm-1.3b")
+    log(f"  {cfg.name}: {cfg.n_layers} layers (sLSTM every "
+        f"{cfg.ssm.slstm_every}th), d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads of hd {cfg.resolved_head_dim}, mLSTM chunk "
+        f"{cfg.ssm.chunk_size}, vocab {cfg.vocab_size}; full width and depth")
+    family_run(torch, card, cfg, XLSTM_B, XLSTM_S, {}, (), backward=True,
+               gate_whole=False)
+
+    cfg = get_config("whisper-large-v3")
+    frames = torch.randn((WHISPER_B, cfg.encoder.seq_len, cfg.d_model),
+                         generator=torch.Generator().manual_seed(26)).cuda()
+    log(f"  {cfg.name}: {cfg.encoder.n_layers} encoder + {cfg.n_layers} "
+        f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads of hd "
+        f"{cfg.resolved_head_dim}, {cfg.encoder.seq_len} frames (seeded), "
+        f"vocab {cfg.vocab_size}; full width and depth; the self-attention "
+        f"cache padded to {WHISPER_S + FAM_STEPS} rows")
+    family_run(torch, card, cfg, WHISPER_B, WHISPER_S, {"frames": frames},
+               ("self_k", "self_v"), backward=True)
+    del frames
+
+    full = get_config("jamba-1.5-large-398b")
+    m = dataclasses.replace(full.moe, n_experts=JAMBA_EXPERTS,
+                            capacity_factor=JAMBA_EXPERTS / full.moe.top_k)
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS, moe=m)
+    log(f"  {cfg.name}: d_model {cfg.d_model}, d_inner "
+        f"{cfg.ssm.expand * cfg.d_model}, d_state {cfg.ssm.d_state}, conv "
+        f"{cfg.ssm.conv_width}, {cfg.n_heads}/{cfg.n_kv_heads} heads of hd "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, top-{m.top_k} of "
+        f"{m.n_experts} experts, vocab {cfg.vocab_size}; reduced: n_layers "
+        f"{full.n_layers} -> {cfg.n_layers} (one group), n_experts "
+        f"{full.moe.n_experts} -> {m.n_experts} (a group at 16 holds 77 GB of "
+        f"expert weights), capacity factor {full.moe.capacity_factor} -> "
+        f"{m.capacity_factor} (= experts / top-k: an expert takes every "
+        "token, so no choice drops and prefill and decode route alike); the "
+        f"attention cache padded to {JAMBA_S + FAM_STEPS} rows")
+    family_run(torch, card, cfg, JAMBA_B, JAMBA_S, {}, ("k", "v"),
+               backward=False)
+
+    launched = {n: c for n, c in read_launches().items() if c}
+    require(not launched, f"kernels launched by the families: {launched}")
+    log("  no kernel launched (these families are plain PyTorch, as they are "
+        f"jnp in the reference); phase 25 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 # -- --turns: the attention and SwiGLU kernels of two trees in turns ----------
 TURN_CODE = """
 import json, sys, zlib
@@ -3407,6 +3954,17 @@ def main() -> int:
         f"chunked kernel path, flash against naive, mixtral-8x7b's ring "
         f"({MIXTRAL_LAYERS} layers), the torch examples")
     prefill_decode_phase(torch)
+    torch.cuda.empty_cache()
+
+    log(f"== training: the train driver at {TRAIN_ARCH}'s full width, "
+        "microbatches, restart, the card against the CPU, the example")
+    training_phase(torch)
+    torch.cuda.empty_cache()
+
+    log("== the other families: xlstm-1.3b and whisper-large-v3 at full "
+        f"width and depth, jamba-1.5-large-398b's widths ({JAMBA_LAYERS} "
+        f"layers, {JAMBA_EXPERTS} experts)")
+    families_phase(torch)
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/paged_decode_attention.py:249",

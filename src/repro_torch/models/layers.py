@@ -33,8 +33,12 @@ def dense_init(gen: torch.Generator, shape, dtype, device,
     return (x * s).to(dtype)
 
 
-def init_attention(gen, cfg, dtype, device):
-    d, hd = cfg.d_model, cfg.resolved_head_dim
+def init_attention(gen, cfg, dtype, device, d_model: Optional[int] = None,
+                   cross: bool = False):
+    """The attention projections of width ``d_model`` (``cfg.d_model`` by
+    default).  ``cross`` (whisper's cross-attention) changes nothing, as in
+    the reference: its K/V project the encoder output, of the same width."""
+    d, hd = d_model or cfg.d_model, cfg.resolved_head_dim
     p = {
         "wq": dense_init(gen, (d, cfg.n_heads, hd), dtype, device),
         "wk": dense_init(gen, (d, cfg.n_kv_heads, hd), dtype, device),

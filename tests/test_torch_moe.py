@@ -379,10 +379,24 @@ def test_mixtral_fails_at_the_sliding_window_assertion_in_both():
 
 @pytest.mark.parametrize("family", ["hybrid", "ssm", "encdec"])
 def test_unported_families_still_raise(family):
+    """A family the port has no model for still raises, from each of the
+    three configs ``Model`` refused until item 14 (which now build:
+    ``test_every_family_builds``)."""
     arch = {"hybrid": "jamba-1.5-large-398b", "ssm": "xlstm-1.3b",
             "encdec": "whisper-large-v3"}[family]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_model(tiny_config(arch))
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(tiny_config(arch).with_(family="rnn"))
+
+
+@pytest.mark.parametrize("family", ["hybrid", "ssm", "encdec"])
+def test_every_family_builds(family):
+    """The three families ``Model`` refused until item 14 build their
+    models (``repro_torch.models.{hybrid,xlstm,whisper}``)."""
+    arch = {"hybrid": "jamba-1.5-large-398b", "ssm": "xlstm-1.3b",
+            "encdec": "whisper-large-v3"}[family]
+    impl = {"hybrid": "HybridLM", "ssm": "XLSTMLM",
+            "encdec": "WhisperModel"}[family]
+    assert type(build_model(tiny_config(arch)).impl).__name__ == impl
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "llava-next-mistral-7b"])
