@@ -252,6 +252,29 @@ Phases, each of which raises (exit code != 0) on failure:
    decode ms a step, loss + backward ms and peak memory printed beside the
    card's line; each model is freed before the next.  No kernel may
    launch.
+26. the dry-run (``python -m repro_torch.launch.dryrun``; no kernel: a
+   meta-device pass, the counterpart of the reference's lowering for 512
+   devices).  (a) ``main(["--both", "--chunked-serve", "--quiet"])``: all
+   33 (arch x shape) cells on the single-pod 16x16 and multi-pod 2x16x16
+   virtual meshes plus the dense chunked-serve rounds, each row and its
+   wall seconds printed; every cell ok, the meta trees' element counts
+   equal repro's; its seconds printed against a 120 s target (a miss is
+   printed, not hidden).  (b) llama3.2-1b's train step at full width, B =
+   8, S = 128, counted by ``op_cost.OpCounter`` on meta and on the card:
+   the same flops, bytes within 1%, every op counted differently printed;
+   then the step timed with CUDA events must take at least 0.95 x its
+   one-chip bound (the larger of its flops at 989 TFLOP/s and its bytes at
+   3.35 TB/s), since a step under its bound means a wrong count.  One
+   dense serve bucket of qwen1.5-0.5b (16 slots x C = 128, max_context
+   512): the plain ``chunked_step`` counted on meta, its bound printed
+   beside the round timed on the card (not gated).  (c) ``quantize_int8``
+   / ``dequantize_int8`` on the card under tests/test_distributed.py's bars
+   and ``compressed_psum`` over an NCCL group of one (a ``FileStore`` in a
+   temporary directory, destroyed after): within 2e-2, residual <= 2e-2.
+   (d) every arch's params and train state (params plus both moments in
+   ``default_train_config``'s moment dtype) per device on both meshes
+   under its own fsdp setting; every shard shape divides its dimension.
+   No kernel may launch in (a).
 
 The second-to-last line is a JSON object listing every kernel with its
 numbers; the last line is ``{"ok": true, "device": {...}}``.
@@ -3832,6 +3855,269 @@ def turns(other: Path, only: str = "") -> int:
     return 0
 
 
+DRY_LEAF_ELEMENTS = {      # the built param trees' elements, as in repro
+    "llama3.2-1b": 1_235_814_400, "granite-34b": 47_249_922_048,
+    "qwen1.5-0.5b": 463_987_712, "mistral-large-123b": 122_610_069_504,
+    "jamba-1.5-large-398b": 398_555_111_424,
+    "whisper-large-v3": 1_534_602_240, "arctic-480b": 476_850_275_328,
+    "mixtral-8x7b": 46_702_792_704, "llava-next-mistral-7b": 7_241_732_096,
+    "xlstm-1.3b": 1_339_431_080,
+}
+DRY_TARGET_S = 120.0
+COUNT_BYTES_RTOL = 0.01
+BOUND_FLOOR = 0.95
+DENSE_SLOTS, DENSE_CONTEXT, DENSE_C = 16, 512, 128   # one dense serve bucket
+
+
+def dryrun_cells(torch):
+    """(a): ``main(["--both", "--chunked-serve", "--quiet"])`` with its JSON
+    record, every cell ok, the meta trees' element counts."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dry_") as d:
+        path = os.path.join(d, "dryrun.json")
+        t0 = time.perf_counter()
+        rc = dryrun.main(["--both", "--chunked-serve", "--quiet", "--json",
+                          path])
+        wall = time.perf_counter() - t0
+        with open(path) as f:
+            rows = json.load(f)
+    bad = [f"{r['arch']} {r['shape']} {r['mesh']}: {r['error']}"
+           for r in rows if not r["ok"]]
+    require(rc == 0 and not bad, f"dry-run cells failed: {bad}")
+    n_cells = sum(1 for r in rows if r["shape"] != "chunk_serve")
+    require(n_cells == 66, f"{n_cells} dry-run cells, not 33 x 2")
+    leaves = {r["arch"]: r["param_leaves"] for r in rows}
+    require(leaves == DRY_LEAF_ELEMENTS, f"meta leaf counts {leaves}")
+    log(f"  {len(rows)} dry-run cells ok ({n_cells} of 33 x 2 meshes + "
+        f"{len(rows) - n_cells} chunked-serve), meta leaf counts equal "
+        f"repro's for all 10 archs; (a) took {wall:.1f} s (target "
+        f"{DRY_TARGET_S:.0f} s: {'met' if wall <= DRY_TARGET_S else 'MISSED'})")
+    return wall
+
+
+def count_pair(torch, fn_meta, fn_cuda):
+    from repro_torch.launch.op_cost import OpCounter
+
+    reps = []
+    for fn in (fn_meta, fn_cuda):
+        with OpCounter() as c:
+            fn()
+        reps.append(c.report)
+    return reps
+
+
+def train_step_bound(torch, card):
+    """(b): llama3.2-1b's train step at B = 8, S = 128 counted on meta and
+    on the card, then timed on the card against its one-chip bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.launch.op_cost import bytes_breakdown, flop_breakdown
+    from repro_torch.models.model import build_model
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.train_step import (
+        TrainConfig, init_train_state, init_train_state_shape, train_step,
+    )
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    tcfg = TrainConfig()
+    m_params, m_opt = init_train_state_shape(model, tcfg)
+    # the train driver's inputs on both devices: tokens, labels, loss_mask
+    m_batch = {k: torch.empty((TRAIN_B, TRAIN_S), dtype=dt, device="meta")
+               for k, dt in (("tokens", torch.int32), ("labels", torch.int32),
+                             ("loss_mask", torch.float32))}
+    params, opt = init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(26), tcfg, "cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
+        DataConfig(cfg.vocab_size, TRAIN_B, TRAIN_S)).batch_at(0).items()}
+    meta, card_rep = count_pair(
+        torch, lambda: train_step(model, tcfg, m_params, m_opt, m_batch),
+        lambda: train_step(model, tcfg, params, opt, batch))
+    torch.cuda.synchronize()
+    for name in sorted(set(meta.by_op) | set(card_rep.by_op)):
+        a = meta.by_op.get(name, [0.0, 0.0, 0.0])
+        b = card_rep.by_op.get(name, [0.0, 0.0, 0.0])
+        if a[:2] != b[:2]:
+            log(f"  counted differently by device: {name}: meta {a[0]:.0f} "
+                f"flops {a[1]:.0f} B in {a[2]:.0f} calls, cuda {b[0]:.0f} "
+                f"flops {b[1]:.0f} B in {b[2]:.0f} calls")
+    rel = abs(meta.hbm_bytes - card_rep.hbm_bytes) / card_rep.hbm_bytes
+    log(f"  {TRAIN_ARCH} train step (B = {TRAIN_B}, S = {TRAIN_S}, "
+        f"TrainConfig()): meta {meta.flops:.6e} flops {meta.hbm_bytes:.6e} B "
+        f"({meta.n_while_loops} trip scopes), cuda {card_rep.flops:.6e} flops "
+        f"{card_rep.hbm_bytes:.6e} B; bytes differ by {rel:.2e}; unknown ops "
+        f"meta {meta.unknown_ops} cuda {card_rep.unknown_ops}")
+    log("  its bytes by op (meta): " + ", ".join(
+        f"{k} {v / 1e9:.2f} GB" for k, v in bytes_breakdown(meta, 8))
+        + "; flops by op: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in flop_breakdown(meta, 4)))
+    require(meta.flops == card_rep.flops,
+            f"flops: meta {meta.flops} != cuda {card_rep.flops}")
+    require(rel <= COUNT_BYTES_RTOL, f"bytes differ by {rel:.4f}")
+    bound = max(meta.flops / PEAK_FLOPS_BF16, meta.hbm_bytes / HBM_BW) * 1e3
+    step = lambda: train_step(model, tcfg, params, opt, batch)   # noqa: E731
+    step()
+    times = [event_ms(torch, step)[1] for _ in range(5)]
+    ms = statistics.median(times)
+    log(f"  train step {ms:.3f} ms (median of 5, CUDA events; "
+        f"{min(times):.3f}-{max(times):.3f}) against its one-chip bound "
+        f"{bound:.3f} ms (max of {meta.flops / PEAK_FLOPS_BF16 * 1e3:.3f} ms "
+        f"at 989 TFLOP/s and {meta.hbm_bytes / HBM_BW * 1e3:.3f} ms at 3.35 "
+        f"TB/s): {ms / bound:.2f}x; {card}")
+    require(ms >= BOUND_FLOOR * bound,
+            f"the step ({ms:.3f} ms) beat its bound ({bound:.3f} ms): the "
+            "count is wrong")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+
+
+def dense_round_bound(torch, card):
+    """(b): one dense serve bucket of full-width qwen1.5-0.5b: the plain
+    ``chunked_step`` counted on meta, its bound beside the round timed on
+    the card (the kernel path).  Printed, not gated."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.launch.op_cost import count
+    from repro_torch.models.model import build_model
+
+    cfg = get_config("qwen1.5-0.5b")
+    impl = build_model(cfg).impl
+    B, C, S = DENSE_SLOTS, DENSE_C, DENSE_CONTEXT
+    kv = (cfg.n_layers, B, S + 1, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+    def inputs(dev):
+        i32 = dict(dtype=torch.int32, device=dev)
+        return (torch.zeros((B, C), **i32),
+                {k: torch.zeros(kv, dtype=torch.bfloat16, device=dev)
+                 for k in ("k", "v")},
+                torch.full((B,), S // 2, **i32), torch.full((B,), C, **i32))
+
+    meta_params = impl.init(torch.Generator(), "meta")
+    with torch.no_grad():
+        _, rep = count(impl.chunked_step, meta_params, *inputs("meta"))
+        params = impl.init(torch.Generator(device="cuda").manual_seed(26),
+                           "cuda")
+        args = inputs("cuda")
+        impl.chunked_step(params, *args)
+        times = [event_ms(torch, lambda: impl.chunked_step(params, *args))[1]
+                 for _ in range(5)]
+    bound = max(rep.flops / PEAK_FLOPS_BF16, rep.hbm_bytes / HBM_BW) * 1e3
+    ms = statistics.median(times)
+    log(f"  dense chunked_step, qwen1.5-0.5b, {B} slots x C = {C} over "
+        f"{S // 2} cached (max_context {S}): counted (meta, plain attention) "
+        f"{rep.flops:.6e} flops {rep.hbm_bytes:.6e} B, bound {bound:.3f} ms; "
+        f"the round on the card (eager, the kernel) {ms:.3f} ms (median of "
+        f"5; {min(times):.3f}-{max(times):.3f}); printed only; {card}")
+    del params, args
+    torch.cuda.empty_cache()
+
+
+def compression_check(torch, card):
+    """(c): INT8 quantization under the reference's bars on the card, and
+    ``compressed_psum`` over an NCCL group of one."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compression import (
+        compressed_psum, compression_ratio, dequantize_int8, quantize_int8,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    x = torch.randn((1000,), generator=gen, device="cuda") * 3.0
+    q, s = quantize_int8(x, gen)
+    err = float((dequantize_int8(q.to(torch.int32), s, x.shape, x.numel())
+                 - x).abs().max())
+    x2 = torch.randn((256,), generator=gen, device="cuda")
+    bias = statistics.mean(
+        float((dequantize_int8(qq.to(torch.int32), ss, x2.shape, x2.numel())
+               - x2).mean())
+        for qq, ss in (quantize_int8(x2, gen) for _ in range(64)))
+    require(err <= float(s.max()), f"INT8 error {err} > scale {float(s.max())}")
+    require(abs(bias) < 5e-3 and compression_ratio() < 0.27,
+            f"INT8 mean error {bias}, ratio {compression_ratio()}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as d:
+        store = dist.FileStore(os.path.join(d, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            grads = {"w": torch.linspace(-1, 1, 512, device="cuda").reshape(
+                2, 256)}
+            out, res = compressed_psum(grads, None, gen)
+            torch.cuda.synchronize()
+            d_out = float((out["w"] - grads["w"]).abs().max())
+            d_res = float(res["w"].abs().max())
+        finally:
+            dist.destroy_process_group()
+    require(d_out <= 2e-2 and d_res <= 2e-2,
+            f"compressed_psum over NCCL: |out - in| {d_out}, residual {d_res}")
+    log(f"  INT8 on the card: max error {err:.4f} <= block scale "
+        f"{float(s.max()):.4f}, mean error over 64 draws {bias:.2e} (bar "
+        f"5e-3), wire ratio {compression_ratio():.4f}; compressed_psum over "
+        f"an NCCL group of one: |out - in| {d_out:.4f}, residual {d_res:.4f} "
+        f"(bars 2e-2); {card}")
+
+
+def sharding_sizes(torch):
+    """(d): every arch's params and train state per device on both meshes
+    under its own fsdp setting; every shard shape divides its dim."""
+    from repro_torch.configs import ASSIGNED_ARCHS, get_config
+    from repro_torch.distributed.sharding import param_specs, shardings_for
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.training.train_step import (
+        default_train_config, init_train_state_shape,
+    )
+    from repro_torch.tree import tree_leaves
+
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        tcfg = default_train_config(cfg.param_count(), batch_shards=1,
+                                    global_batch=1)
+        params, opt = init_train_state_shape(model, tcfg)
+        fsdp = cfg.sharding == "fsdp_tp"
+        parts = []
+        for mp in (False, True):
+            mesh = make_production_mesh(multi_pod=mp)
+            shard = tree_leaves(shardings_for(
+                param_specs(params, mesh, fsdp=fsdp), mesh))
+            p_b = m_b = 0
+            for t, mu, sh in zip(tree_leaves(params), tree_leaves(opt.mu),
+                                 shard):
+                local = sh.shard_shape(tuple(t.shape))   # raises if not
+                require(all(d % k == 0 for d, k in zip(t.shape, local)),
+                        f"{arch} {tuple(t.shape)} -> {local}")
+                n = math.prod(local)
+                p_b += n * t.element_size()
+                m_b += 2 * n * mu.element_size()
+            parts.append(f"{'x'.join(map(str, mesh.axis_sizes))}: params "
+                         f"{p_b / 1e9:.3f} GB, train state "
+                         f"{(p_b + m_b) / 1e9:.3f} GB per device")
+        log(f"  {arch} (fsdp {fsdp}, moments {tcfg.moment_dtype}): "
+            + "; ".join(parts))
+
+
+def dryrun_phase(torch):
+    """Phase 26: the whole dry-run on the card machine's host, the counter
+    held against the card, INT8 compression on the card and over NCCL, and
+    every arch's per-device sizes."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    zero_launches()
+    wall = dryrun_cells(torch)
+    require(all(v == 0 for v in read_launches().values()),
+            f"a kernel launched in the dry-run: {read_launches()}")
+    train_step_bound(torch, card)
+    dense_round_bound(torch, card)
+    compression_check(torch, card)
+    sharding_sizes(torch)
+    log(f"  phase 26 took {time.perf_counter() - t_phase:.1f} s (the dry-run "
+        f"{wall:.1f} s of it); {card}")
+
+
 def main() -> int:
     import torch
 
@@ -3965,6 +4251,12 @@ def main() -> int:
         f"width and depth, jamba-1.5-large-398b's widths ({JAMBA_LAYERS} "
         f"layers, {JAMBA_EXPERTS} experts)")
     families_phase(torch)
+    torch.cuda.empty_cache()
+
+    log("== the dry-run: every (arch x shape) cell on the meta device over "
+        "both virtual meshes, the counter against the card, INT8 "
+        "compression, per-device sizes")
+    dryrun_phase(torch)
 
     sources = {
         "paged_decode_attention": "src/repro/kernels/paged_decode_attention.py:249",

@@ -9,8 +9,11 @@ directory and published by an atomic rename; the manager keeps the newest
 ``keep`` steps.  Saves run on a background thread, so training never waits
 on the disk.  Either package reads the other's checkpoints.
 
-Restore loads every leaf whole onto one device; restoring under other
-shardings (the reference's elastic resharding) waits for the mesh work.
+Restore loads every leaf whole onto one device.  ``restore(...,
+shardings=...)`` takes the reference's argument: a leaf's
+``NamedSharding`` over a mesh of one device places the whole leaf there;
+a larger mesh (the reference's elastic resharding across processes) is
+refused until the port runs on several GPUs.
 """
 from __future__ import annotations
 
@@ -47,6 +50,22 @@ def _to_host(v) -> Tuple[np.ndarray, str]:
         return t.numpy(), str(t.numpy().dtype)
     a = np.array(v)                      # a copy
     return a, str(a.dtype)
+
+
+def _check_one_device(shardings: Any) -> None:
+    """Every NamedSharding of the tree is over a mesh of one device."""
+    if hasattr(shardings, "mesh") and hasattr(shardings, "spec"):
+        if shardings.mesh.size != 1:
+            raise NotImplementedError(
+                f"restore under {shardings!r}: a mesh of "
+                f"{shardings.mesh.size} devices; this process holds every "
+                "leaf whole on one device")
+    elif isinstance(shardings, dict):
+        for v in shardings.values():
+            _check_one_device(v)
+    elif isinstance(shardings, (list, tuple)):
+        for v in shardings:
+            _check_one_device(v)
 
 
 @dataclass
@@ -136,10 +155,15 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                device=None) -> Tuple[int, Any]:
+                device=None, shardings: Any = None) -> Tuple[int, Any]:
         """Restore into ``template``'s structure: each leaf a tensor of the
         template leaf's dtype on ``device``, or on the template tensor's own
-        device (the CPU for a leaf that is not a tensor)."""
+        device (the CPU for a leaf that is not a tensor).  ``shardings``: a
+        matching tree of ``NamedSharding`` (or None leaves) over a mesh of
+        one device, which holds each leaf whole; any larger mesh raises
+        ``NotImplementedError``."""
+        if shardings is not None:
+            _check_one_device(shardings)
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")

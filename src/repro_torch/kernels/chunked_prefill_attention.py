@@ -22,8 +22,10 @@ strides, so the engine's ``cache[:, :-1]`` view (the sink row dropped) goes
 in without a copy, and on the same keys laid into pages it returns the
 paged kernel's output bit for bit.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+On a CPU tensor the wrapper runs the plain version, and on a meta tensor
+too (the dry-run's shape-only pass counts it, as the reference's dry-run
+counts its ``jnp`` path); on a CUDA tensor it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ def chunked_prefill_attention(q, k_cache, v_cache, kv_lens, q_offset):
     """q (B, Sq, Hq, hd); k/v_cache (B, Skv, Hkv, hd), rows contiguous, any
     batch and key strides; kv_lens and q_offset (B,) int32 -> (B, Sq, Hq, hd)
     in q's dtype."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return chunked_prefill_attention_plain(q, k_cache, v_cache, kv_lens,
                                                q_offset)
     dev = q.device

@@ -19,9 +19,9 @@ import math
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.op_cost import checkpoint, trip_fill, trip_items
 from repro_torch.models import layers as L
 from repro_torch.models.mamba import init_mamba, mamba_mixer, mamba_state_struct
 from repro_torch.models.transformer import _block_decode, _block_fwd, torch_dtype
@@ -121,9 +121,10 @@ class HybridLM:
         Hkv, hd) or None, mamba states stacked (G, 7, ...)).  ``remat``
         recomputes each group in the backward pass when grad is enabled."""
         ks, vs, ms = [], [], []
-        for g in range(self.n_groups):
-            args = (x, params["attn_layers"][g], self._mamba_layers(params, g),
-                    positions, collect_kv)
+        groups = [(params["attn_layers"][g], self._mamba_layers(params, g))
+                  for g in range(self.n_groups)]
+        for _, (attn_p, mamba_ps) in trip_items(groups, device=x.device):
+            args = (x, attn_p, mamba_ps, positions, collect_kv)
             if remat and torch.is_grad_enabled():
                 x, kv, st = checkpoint(self._group_fwd, *args,
                                        use_reentrant=False)
@@ -133,8 +134,10 @@ class HybridLM:
                 ks.append(kv[0])
                 vs.append(kv[1])
             ms.append(st)
-        kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-        return x, kv, _stack_states(ms)
+        G = self.n_groups
+        kv = ((torch.stack(trip_fill(ks, G)), torch.stack(trip_fill(vs, G)))
+              if collect_kv else None)
+        return x, kv, _stack_states(trip_fill(ms, G))
 
     @staticmethod
     def _positions(x):

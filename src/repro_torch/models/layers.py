@@ -343,6 +343,8 @@ def init_moe(gen, cfg, dtype, device):
 
     def experts(rows, cols):
         w = torch.empty((m.n_experts, rows, cols), dtype=dtype, device=device)
+        if w.device.type == "meta":      # shapes only: nothing to draw
+            return w
         for e in range(m.n_experts):
             w[e] = dense_init(gen, (rows, cols), dtype, device, scale=scale)
         return w

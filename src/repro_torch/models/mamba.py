@@ -14,9 +14,9 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.op_cost import checkpoint, trip_fill, trip_range
 from repro_torch.models.layers import dense_init
 
 MAMBA_CHUNK = 256
@@ -71,11 +71,11 @@ def _ssm_chunk(h0, x, dt, Bm, Cm, A):
     checkpoint's recompute repeats it exactly."""
     h = h0
     ys = []
-    for t in range(x.shape[1]):
+    for t in trip_range(x.shape[1], device=x.device):
         dA = torch.exp(dt[:, t, :, None] * A[None])          # (B, d_in, N)
         h = dA * h + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
-    return h, torch.stack(ys, dim=1)
+    return h, torch.stack(trip_fill(ys, x.shape[1]), dim=1)
 
 
 def mamba_mixer(p, x, cfg: ModelConfig, state=None, chunk: int = MAMBA_CHUNK):
@@ -111,7 +111,7 @@ def mamba_mixer(p, x, cfg: ModelConfig, state=None, chunk: int = MAMBA_CHUNK):
         h, ys = _ssm_chunk(h, xc_f, dt, Bm, Cm, A)
     else:
         ys = []
-        for c in range(0, S, Q):
+        for c in trip_range(0, S, Q, device=x.device):
             args = (h, xc_f[:, c:c + Q], dt[:, c:c + Q], Bm[:, c:c + Q],
                     Cm[:, c:c + Q], A)
             if torch.is_grad_enabled():
@@ -119,7 +119,7 @@ def mamba_mixer(p, x, cfg: ModelConfig, state=None, chunk: int = MAMBA_CHUNK):
             else:
                 h, y = _ssm_chunk(*args)
             ys.append(y)
-        ys = torch.cat(ys, dim=1)
+        ys = torch.cat(trip_fill(ys, S // Q), dim=1)
 
     y = ys + xc_f * p["D"][None, None, :]
     y = y.to(x.dtype) * F.silu(z)

@@ -9,16 +9,20 @@ exposing a uniform surface:
   decode(params, tokens, cache, lens) -> (logits, cache)
   loss(params, batch) -> (scalar, metrics)       # chunked cross-entropy
   cache_struct(batch, seq_len)
+  init_shape(gen) -> params on the meta device     # for the dry-run
+  input_specs(shape_spec) -> dict of meta tensors (modality stubs incl.)
 """
 from __future__ import annotations
 
-import torch
-from torch.utils.checkpoint import checkpoint
+from typing import Any, Dict
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.launch.op_cost import checkpoint
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.layers import attention_phase
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.transformer import TransformerLM, torch_dtype
 from repro_torch.models.whisper import WhisperModel
 from repro_torch.models.xlstm import XLSTMLM
 
@@ -87,6 +91,12 @@ class Model:
     def init(self, gen: torch.Generator, device="cuda"):
         return self.impl.init(gen, device)
 
+    def init_shape(self, gen: torch.Generator = None):
+        """The param tree on the meta device: shapes and dtypes, no
+        storage (for the dry-run)."""
+        return self.impl.init(gen if gen is not None else torch.Generator(),
+                              "meta")
+
     def train_hidden(self, params, batch, remat: bool = True):
         return self.impl.train_hidden(params, batch, remat=remat)
 
@@ -119,6 +129,35 @@ class Model:
         loss = chunked_cross_entropy(hidden, w, kind, labels,
                                      batch.get("loss_mask"))
         return loss, {"loss": loss}
+
+    def input_specs(self, shape: ShapeSpec) -> Dict[str, Any]:
+        """Meta-tensor stand-ins for every model input of this shape cell,
+        in the reference's shapes and dtypes."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        emb_dt = torch_dtype(cfg.param_dtype)
+
+        def spec(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind == "decode":      # one new token against a cache of S
+            return {"tokens": spec((B, 1), i32),
+                    "cache": self.cache_struct(B, S),
+                    "lens": spec((B,), i32)}
+        specs: Dict[str, Any] = {}
+        S_text = S
+        if cfg.family == "encdec":
+            specs["frames"] = spec((B, cfg.encoder.seq_len, cfg.d_model),
+                                   emb_dt)
+        elif cfg.family == "vlm":
+            P = cfg.n_patch_tokens
+            specs["patch_embeds"] = spec((B, P, cfg.d_model), emb_dt)
+            S_text = S - P
+        specs["tokens"] = spec((B, S_text), i32)
+        if shape.kind == "train":
+            specs["labels"] = spec((B, S_text), i32)
+        return specs
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -18,9 +18,9 @@ import math
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.op_cost import checkpoint, trip_fill, trip_items
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
@@ -164,7 +164,7 @@ class TransformerLM:
         backward pass (``torch.utils.checkpoint``) when grad is enabled."""
         cfg = self.cfg
         ks, vs = [], []
-        for lp in params["layers"]:
+        for _, lp in trip_items(params["layers"], device=x.device):
             if remat and torch.is_grad_enabled():
                 x, kv = checkpoint(_block_fwd, lp, x, positions, cfg,
                                    collect_kv, use_reentrant=False)
@@ -173,7 +173,9 @@ class TransformerLM:
             if collect_kv:
                 ks.append(kv[0])
                 vs.append(kv[1])
-        return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+        n = len(params["layers"])
+        return x, ((torch.stack(trip_fill(ks, n)),
+                    torch.stack(trip_fill(vs, n))) if collect_kv else None)
 
     @staticmethod
     def _positions(x):

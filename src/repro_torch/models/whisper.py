@@ -19,9 +19,9 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.op_cost import checkpoint, trip_fill, trip_items
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _write_rows, torch_dtype
 
@@ -138,7 +138,7 @@ class WhisperModel:
         x = frames.to(device=params["embed"].device,
                       dtype=torch_dtype(cfg.param_dtype))
         x = x + sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
-        for lp in params["enc_blocks"]:
+        for _, lp in trip_items(params["enc_blocks"], device=x.device):
             if remat and torch.is_grad_enabled():
                 x = checkpoint(_enc_layer, lp, x, cfg, use_reentrant=False)
             else:
@@ -154,7 +154,7 @@ class WhisperModel:
         S = x.shape[1]
         x = x + sinusoid(S, cfg.d_model, x.device).to(x.dtype)[None]
         kvs = []
-        for lp in params["dec_blocks"]:
+        for _, lp in trip_items(params["dec_blocks"], device=x.device):
             if remat and torch.is_grad_enabled():
                 x, kv = checkpoint(_dec_layer, lp, x, enc_out, cfg,
                                    use_reentrant=False)
@@ -163,6 +163,7 @@ class WhisperModel:
             if collect_kv:
                 kvs.append(kv)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        kvs = trip_fill(kvs, len(params["dec_blocks"])) if collect_kv else None
         return x, (tuple(torch.stack(a) for a in zip(*kvs)) if collect_kv
                    else None)
 

@@ -21,9 +21,11 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.op_cost import (
+    checkpoint, trip_fill, trip_items, trip_range,
+)
 from repro_torch.models.layers import dense_init, rms_norm
 from repro_torch.models.transformer import torch_dtype
 
@@ -135,7 +137,7 @@ def mlstm_mixer(p, x, cfg: ModelConfig, state=None, chunk: int = 0):
         Q = math.gcd(S, Q) or 1
     C, n, m = state
     hs = []
-    for c in range(0, S, Q):
+    for c in trip_range(0, S, Q, device=x.device):
         sl = slice(c, c + Q)
         args = (C, n, m, q[:, sl], k[:, sl], v[:, sl], log_i[:, sl],
                 log_f[:, sl], hd)
@@ -144,7 +146,7 @@ def mlstm_mixer(p, x, cfg: ModelConfig, state=None, chunk: int = 0):
         else:
             C, n, m, h = _mlstm_chunk(*args)
         hs.append(h)
-    h = torch.cat(hs, dim=1).reshape(B, S, H * hd)
+    h = torch.cat(trip_fill(hs, S // Q), dim=1).reshape(B, S, H * hd)
 
     og = torch.sigmoid(h_in @ p["wog"])
     h = rms_norm(h.to(x.dtype), p["out_norm"], cfg.norm_eps) * og
@@ -207,10 +209,10 @@ def slstm_mixer(p, x, cfg: ModelConfig, state=None):
 
     c, n, h, m = state
     hs = []
-    for t in range(S):
+    for t in trip_range(S, device=x.device):
         c, n, h, m = _slstm_step(c, n, h, m, wx[:, t], p["r_gates"])
         hs.append(h)
-    out = torch.stack(hs, dim=1).reshape(B, S, H * hd)
+    out = torch.stack(trip_fill(hs, S), dim=1).reshape(B, S, H * hd)
 
     out = rms_norm(out.to(x.dtype), p["out_norm"], cfg.norm_eps)
     x = x + out @ p["down_proj"]
@@ -273,26 +275,27 @@ class XLSTMLM:
         per block], (c, n, h, m))."""
         cfg = self.cfg
         new_m = []
-        for j, lp in enumerate(m_params):
+        for j, lp in trip_items(m_params, device=x.device):
             st = None if m_states is None else m_states[j]
             x, ns = mlstm_mixer(lp, x, cfg, st)
             new_m.append(ns)
         x, s_new = slstm_mixer(s_params, x, cfg, s_state)
-        return x, new_m, s_new
+        return x, trip_fill(new_m, len(m_params)), s_new
 
     def _run(self, params, x, states=None, remat: bool = False):
         """Every group: (x, the new states stacked as the reference's).
         ``remat`` recomputes each group in the backward pass when grad is
         enabled."""
         new_m, new_s = [], []
-        for g in range(self.n_groups):
+        groups = list(zip(params["mlstm"], params["slstm"]))
+        for g, (m_params, s_params) in trip_items(groups, device=x.device):
             if states is None:
                 m_st = s_st = None
             else:
                 m_st = [tuple(a[g, j] for a in states["mlstm"])
                         for j in range(self.m_per_group)]
                 s_st = tuple(a[g] for a in states["slstm"])
-            args = (x, params["mlstm"][g], params["slstm"][g], m_st, s_st)
+            args = (x, m_params, s_params, m_st, s_st)
             if remat and torch.is_grad_enabled():
                 x, m_out, s_out = checkpoint(self._group_fwd, *args,
                                              use_reentrant=False)
@@ -300,6 +303,8 @@ class XLSTMLM:
                 x, m_out, s_out = self._group_fwd(*args)
             new_m.append([torch.stack(a) for a in zip(*m_out)])
             new_s.append(s_out)
+        new_m = trip_fill(new_m, self.n_groups)
+        new_s = trip_fill(new_s, self.n_groups)
         return x, {"mlstm": tuple(torch.stack(a) for a in zip(*new_m)),
                    "slstm": tuple(torch.stack(a) for a in zip(*new_s))}
 

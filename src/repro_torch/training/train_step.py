@@ -15,6 +15,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.launch.op_cost import stand_in_grads, trip_range
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.training.optimizer import (
@@ -40,6 +41,13 @@ def init_train_state(model: Model, gen: torch.Generator, cfg: TrainConfig,
     return params, opt
 
 
+def init_train_state_shape(model: Model, cfg: TrainConfig
+                           ) -> Tuple[Any, AdamWState]:
+    """(params, opt_state) on the meta device: shapes and dtypes, moments
+    in ``cfg.moment_dtype``, no storage (for the dry-run)."""
+    return init_train_state(model, torch.Generator(), cfg, device="meta")
+
+
 def _split_microbatches(batch: Dict[str, Any], n: int):
     """Microbatch i is rows [i*B/n, (i+1)*B/n) of every batch leaf."""
     def r(x):
@@ -57,6 +65,9 @@ def _value_and_grad(model: Model, params, batch, remat: bool):
         loss, metrics = model.loss(tree_unflatten(params, leaves), batch,
                                    remat=remat)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # a dry-run's scaled layer loop charges skipped layers' backward
+    # through the layer standing for them: their grads are its grads
+    grads = stand_in_grads(leaves, grads)
     # a leaf the loss does not reach gets a zero grad, as under jax.grad
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
@@ -78,8 +89,9 @@ def loss_and_grad(model: Model, params, batch, cfg: TrainConfig):
     loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
     grad_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
                                               device=p.device), params)
-    for mb in _split_microbatches(batch, n):
-        loss, _, grads = _value_and_grad(model, params, mb, cfg.remat)
+    mbs = _split_microbatches(batch, n)
+    for i in trip_range(n, device=dev, independent=True):
+        loss, _, grads = _value_and_grad(model, params, mbs[i], cfg.remat)
         grad_acc = tree_map(lambda a, g: a + g.to(acc_dt) / n, grad_acc, grads)
         loss_acc = loss_acc + loss / n
     return loss_acc, {"loss": loss_acc}, grad_acc
