@@ -61,7 +61,9 @@ Phases, each of which raises (exit code != 0) on failure:
    ShareGPT-like requests through the pipelined engine with paged KV --
    with the kernels' launch counters zeroed after warm-up; every request
    must finish with its full token count and both kernels must have run
-   (decode 24 times per pure-decode round).
+   (decode 24 times per pure-decode round).  The serve records its spans
+   (``repro_torch.tracing``) and prints their summary: device ms per
+   round by bucket, from CUDA events read at drain, among it.
 6. serve, swap: the same with ``--preemption-mode swap --kv-blocks 48
    --interval 0`` (every request arrives at once, so the pressure bites
    however fast the rounds run): swap preemptions happen and are all restored, the gather runs twice
@@ -165,11 +167,13 @@ Phases, each of which raises (exit code != 0) on failure:
    temperature 1.0, 8 replays of one idle round draw 8 different rows of
    ids.  Then phase 5's serve in 3 interleaved pairs (graph, eager, eager,
    graph, ...) on the split engine and one pair each on fused and dense:
-   output tok/s, mean TTFT, P99 E2E, mean ``bubble_ms`` and
-   ``enqueue_ms``, the host ms per round in ``schedule()``, in the input
-   copies and in ``dispatch``, and each round's span on the device (CUDA
-   events around ``dispatch``), each with its range; greedy tokens of
-   graph against eager printed, not gated.  Last, a split graph engine
+   output tok/s, mean TTFT, P99 E2E, mean ``bubble_ms`` and the mean
+   ``engine.replay`` span (``repro_torch.tracing``: the host ms to launch
+   the replay or the eager step), the host ms per round in
+   ``schedule()``, in the input copies and in ``dispatch``, and each
+   round's span on the device (CUDA events around ``dispatch``), each
+   with its range; greedy tokens of graph against eager printed, not
+   gated.  Last, a split graph engine
    built, warmed up, serving phase 5's workload and dropped with ``del``
    while Python's cyclic collector is off must return
    ``torch.cuda.memory_allocated()`` to within 64 MiB of its level before
@@ -1057,10 +1061,18 @@ def log_swap_times(name, r) -> None:
 
 
 # -- phase 5: the serving main path --------------------------------------------
+def replay_ms(tracer) -> float:
+    """Mean host ms of the ``engine.replay`` spans: launching a round's
+    graph replay, or its eager step, and its readback copy."""
+    return statistics.mean((s.t1 - s.t0) / 1e6 for s in tracer.spans()
+                           if s.name == "engine.replay")
+
+
 def serve_phase(torch):
     from repro_torch.engine.engine import serve
     from repro_torch.kernels.paged_decode_attention import paged_decode_attention
     from repro_torch.kernels.paged_prefill_attention import paged_prefill_attention
+    from repro_torch import tracing
     from repro_torch.launch import serve as serve_cli
 
     args = serve_cli.build_parser().parse_args(["--full"])
@@ -1070,10 +1082,10 @@ def serve_phase(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     engine.bucket_rounds.clear()
-    engine.enqueue_ms.clear()
     paged_decode_attention.launches = 0
     paged_prefill_attention.launches = 0
-    res = serve(reqs, sched, engine, kv_pool=kv_pool)
+    tracer = tracing.Tracer()
+    res = serve(reqs, sched, engine, kv_pool=kv_pool, tracer=tracer)
     torch.cuda.synchronize()
     launches = {"paged_decode_attention": paged_decode_attention.launches,
                 "paged_prefill_attention": paged_prefill_attention.launches}
@@ -1095,15 +1107,17 @@ def serve_phase(torch):
     rep = res.report
     out_tok_s = len(toks) / res.wall_s
     bubble = statistics.mean(res.host_bubble_ms) if res.host_bubble_ms else 0.0
-    enqueue = statistics.mean(engine.enqueue_ms)
+    replay = replay_ms(tracer)
     log(f"  served {rep.n_finished}/{rep.n_total} requests, {len(toks)} output "
         f"tokens in {res.wall_s:.3f} s over {res.rounds} rounds "
         f"(by chunk bucket: {dict(sorted(engine.bucket_rounds.items()))})")
     log(f"  output tok/s {out_tok_s:.1f}  mean TTFT {rep.ttft['mean'] * 1e3:.2f} ms"
         f"  P99 E2E {rep.e2e['p99'] * 1e3:.2f} ms  mean bubble_ms {bubble:.3f}"
-        f"  mean enqueue_ms {enqueue:.3f}"
+        f"  mean engine.replay span {replay:.3f} ms"
         f"  peak memory {peak / 2**30:.3f} GiB")
     log(f"  kernel launches on the main path: {launches}")
+    for line in tracing.summary(tracer.spans()):
+        log(f"  spans: {line}")
     return engine, launches, [res.outputs[r.req_id] for r in reqs]
 
 
@@ -2406,6 +2420,7 @@ def timed_serve(torch, engine, kv_pool, args):
     where the host is the slower, as eagerly), and the greedy outputs."""
     from repro_torch.engine.engine import serve
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.tracing import Tracer
 
     sched = serve_cli.build_scheduler(args)
     reqs = serve_cli.workload(args, engine.model_cfg)
@@ -2435,10 +2450,10 @@ def timed_serve(torch, engine, kv_pool, args):
     sched.schedule = timed("schedule", sched.schedule)
     engine._copy_in = timed("copy_in", engine._copy_in)
     engine.dispatch = on_device(timed("dispatch", engine.dispatch))
-    engine.enqueue_ms.clear()
+    tracer = Tracer()
     torch.cuda.synchronize()
     try:
-        res = serve(reqs, sched, engine, kv_pool=kv_pool)
+        res = serve(reqs, sched, engine, kv_pool=kv_pool, tracer=tracer)
         torch.cuda.synchronize()
     finally:
         # each wrapper holds a bound method of the object it is set on: a
@@ -2455,7 +2470,7 @@ def timed_serve(torch, engine, kv_pool, args):
             "ttft_ms": rep.ttft["mean"] * 1e3,
             "p99_e2e_ms": rep.e2e["p99"] * 1e3,
             "bubble_ms": statistics.mean(res.host_bubble_ms),
-            "enqueue_ms": statistics.mean(engine.enqueue_ms),
+            "replay_ms": replay_ms(tracer),
             "rounds": res.rounds, "wall_s": res.wall_s,
             "span_ms": device_ms / res.rounds,
             "span_share": device_ms / (res.wall_s * 1e3),
@@ -2485,8 +2500,8 @@ def serve_pairs(torch, layout, n_pairs):
             f"tok/s {spread([x['tok_s'] for x in r])}; mean TTFT ms "
             f"{spread([x['ttft_ms'] for x in r])}; P99 E2E ms "
             f"{spread([x['p99_e2e_ms'] for x in r])}; mean bubble_ms "
-            f"{spread([x['bubble_ms'] for x in r])}; mean enqueue_ms "
-            f"{spread([x['enqueue_ms'] for x in r])}")
+            f"{spread([x['bubble_ms'] for x in r])}; mean engine.replay "
+            f"span ms {spread([x['replay_ms'] for x in r])}")
         log(f"    per round, host ms: schedule() "
             f"{spread([x['schedule_ms'] for x in r])}; input copies "
             f"{spread([x['copy_in_ms'] for x in r])}; dispatch "

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -77,9 +77,29 @@ def select_chunk(
     ``target_ms`` lets the SLO tier substitute the *tightest admitted
     deadline's* per-round budget for the static ``cfg.target_latency_ms``.
     """
+    return search(remaining=remaining, committed=committed,
+                  token_budget=token_budget, batch_state=batch_state,
+                  processed=processed, predictor=predictor, cfg=cfg,
+                  target_ms=target_ms)[0]
+
+
+def search(
+    *,
+    remaining: int,
+    committed: int,
+    token_budget: int,
+    batch_state: BatchState,
+    processed: int,
+    predictor,
+    cfg: LPRSConfig,
+    target_ms: Optional[float] = None,
+) -> Tuple[int, float, int]:
+    """``select_chunk``'s search with what it saw: ``(c_i^*, the predicted
+    ms of the round with that chunk, candidates scored)``; the prediction
+    is NaN where no candidate was scored or the starvation guard chose."""
     h_i = min(remaining, token_budget - committed)
     if h_i <= 0:
-        return 0
+        return 0, math.nan, 0
 
     cands = candidate_set(h_i, cfg.search_delta)
     # Build all candidate feature vectors in one batched predictor call.
@@ -93,12 +113,14 @@ def select_chunk(
     # arg-min; ties broken toward the larger chunk (Algorithm 1 lines 16-21)
     best = 0
     best_score = np.inf
-    for c, s in zip(cands, scores):
+    best_pred = math.nan
+    for c, s, p in zip(cands, scores, preds):
         if s < best_score or (s == best_score and c > best):
             best_score = s
             best = int(c)
+            best_pred = float(p)
 
     # starvation guard for an empty batch (Algorithm 1 lines 23-26)
     if best == 0 and committed == 0 and h_i >= 1:
-        return 1
-    return best
+        return 1, math.nan, len(cands)
+    return best, best_pred, len(cands)

@@ -23,10 +23,11 @@ from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
 from repro_torch.core.apc import APCConfig, APCStats, activity_cap
 from repro_torch.core.apc import apply as apc_apply
 from repro_torch.core.features import BatchState
-from repro_torch.core.lprs import LPRSConfig, predicted_resume_rounds, select_chunk
+from repro_torch.core.lprs import LPRSConfig, predicted_resume_rounds, search
 from repro_torch.core.policies import PrefillQueue, make_policy
 from repro_torch.core.request import Request, RequestState
 from repro_torch.core.slo import SLOConfig, SLOTracker
+from repro_torch.tracing import OFF
 
 if TYPE_CHECKING:  # imported lazily at runtime: tenancy itself imports core
     from repro_torch.tenancy import FairnessState
@@ -211,6 +212,9 @@ class ChunkedPrefillScheduler:
         self._decoding: Dict[int, Request] = {}
         self._deferred_this_round: List[Request] = []
         self.stats = SchedulerStats()
+        # spans of schedule(), of each LPRS search and of queue waits (a
+        # ReplicaServer hands its tracer over; off by default)
+        self.tracer = OFF
         self._round = 0
         self._slot_binder = None
         self._slot_releaser = None
@@ -382,6 +386,8 @@ class ChunkedPrefillScheduler:
         self._bound_slots.discard(req.req_id)
         self._swap_round.pop(req.req_id, None)
         self._restore_defers.pop(req.req_id, None)
+        if self.tracer.on:
+            self.tracer.queue_close(req.req_id)
         if req in self.queue:
             self.queue.remove(req)
         if batch is not None:
@@ -433,6 +439,8 @@ class ChunkedPrefillScheduler:
         was admitted once and its token bucket already charged — a crash
         must not double-bill the tenant."""
         assert req.state == RequestState.WAITING, req.state
+        if self.tracer.on:
+            self.tracer.queue_open(req.req_id, requeue=1)
         if req in self.queue:
             self.queue.update(req)
         else:
@@ -464,6 +472,10 @@ class ChunkedPrefillScheduler:
     # -- one scheduling round -------------------------------------------------
     def schedule(self, now: float) -> ScheduledBatch:
         cfg = self.cfg
+        tr = self.tracer
+        if tr.on:
+            span = tr.open("sched.schedule", round=self._round)
+            lprs_chunks, round_pred = 0, None
         batch = ScheduledBatch(round_idx=self._round)
         self._round += 1
         self.stats.rounds += 1
@@ -675,7 +687,9 @@ class ChunkedPrefillScheduler:
 
             # chunk proposal: LPRS (Algorithm 1) or static rule (Eq. 7)
             if cfg.lprs is not None:
-                c = select_chunk(
+                if tr.on:
+                    lprs_span = tr.open("sched.lprs")
+                c, pred_ms, n_cands = search(
                     remaining=req.remaining_prefill,
                     committed=committed,
                     token_budget=cfg.token_budget,
@@ -685,6 +699,10 @@ class ChunkedPrefillScheduler:
                     cfg=cfg.lprs,
                     target_ms=slo_target_ms,
                 )
+                if tr.on:
+                    tr.close(lprs_span, candidates=n_cands, chunk=c,
+                             pred_ms=pred_ms)
+                c_lprs = c
             else:
                 c = h_i
 
@@ -752,6 +770,13 @@ class ChunkedPrefillScheduler:
                 self.kv_pool.allocate(req.req_id, int(c), tenant=req.tenant)
                 scheduled_ids.add(req.req_id)
             batch.prefill_chunks.append((req, int(c)))
+            if tr.on:
+                tr.queue_close(req.req_id)
+                if cfg.lprs is not None:
+                    # the search predicted this very state unless a gate
+                    # changed its chunk
+                    lprs_chunks += 1
+                    round_pred = pred_ms if c == c_lprs else None
             st = st.with_extra_prefill(int(c), req.prefill_done)
             committed += int(c)
             seq_slots -= 1
@@ -772,6 +797,17 @@ class ChunkedPrefillScheduler:
         self.stats.scheduled_prefill_tokens += batch.prefill_tokens
         self.stats.scheduled_decode_tokens += batch.decode_tokens
         self._prev_round_busy = not batch.is_empty()
+        if tr.on:
+            attrs = {}
+            if lprs_chunks:
+                if round_pred is None:
+                    round_pred = float(self.predictor.predict(st.features()[None])[0])
+                attrs = {"lprs_chunks": lprs_chunks, "pred_ms": round_pred,
+                         "target_ms": (cfg.lprs.target_latency_ms
+                                       if slo_target_ms is None else slo_target_ms)}
+            tr.close(span, decode=n_decode, decode_tokens=batch.decode_tokens,
+                     prefill=len(batch.prefill_chunks),
+                     prefill_tokens=batch.prefill_tokens, **attrs)
         return batch
 
     def shed_request(self, req: Request, *, reason: str,
@@ -883,6 +919,8 @@ class ChunkedPrefillScheduler:
     def _note_restored(self, req_id: int) -> None:
         """A restore (full, prefetched, or tail) completed: accumulate the
         rounds this victim spent host-staged and clear its telemetry."""
+        if self.tracer.on:
+            self.tracer.queue_close(req_id)
         stamp = self._swap_round.pop(req_id, None)
         if stamp is not None:
             self.stats.restore_wait_rounds += max(0, self._round - stamp)
@@ -1109,6 +1147,8 @@ class ChunkedPrefillScheduler:
         self._bound_slots.discard(victim.req_id)
         self.stats.preemptions += 1
         batch.preempted.append(victim)
+        if self.tracer.on:
+            self.tracer.queue_open(victim.req_id, requeue=1)
         if was_decoding:
             self._decoding.pop(victim.req_id, None)
             self.queue.add(victim)
@@ -1122,6 +1162,9 @@ class ChunkedPrefillScheduler:
     # -- post-execution updates ---------------------------------------------
     def on_batch_done(self, batch: ScheduledBatch, now: float) -> None:
         """Apply chunk/token deliveries after the engine executed the batch."""
+        tr = self.tracer
+        if tr.on:
+            span = tr.open("sched.on_batch_done")
         for req, c in batch.prefill_chunks:
             req.receive_chunk(c)
             if req.state == RequestState.DECODING:
@@ -1154,3 +1197,5 @@ class ChunkedPrefillScheduler:
             # charge the VTC for tokens actually executed this round and
             # retire prefill-complete requests from the fair queue's books
             self.fairness.on_batch_done(batch)
+        if tr.on:
+            tr.close(span)

@@ -77,6 +77,7 @@ from repro_torch.kernels.ops import (
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.robustness import FailoverStats, ReplicaHealth
+from repro_torch.tracing import OFF, Tracer
 
 
 @dataclass
@@ -199,6 +200,9 @@ class InflightRound:
     nonfinite: set = field(default_factory=set)
     # the batch this round executed -- a crash unwind enumerates its members
     batch: Optional[ScheduledBatch] = None
+    # CUDA events around the replay while a tracer is on: the round's
+    # device ms, read at drain
+    events: Optional[Tuple[object, object]] = None
 
 
 class TorchEngine:
@@ -243,9 +247,9 @@ class TorchEngine:
         # is built to close); fed by execute()/dispatch()
         self.bubble_ms: List[float] = []
         self._t_ready: Optional[float] = None
-        # host ms to stage and enqueue each round (the eager step launches
-        # every kernel of the round from Python)
-        self.enqueue_ms: List[float] = []
+        # spans of dispatch and drain (a ReplicaServer hands its tracer
+        # over; off by default)
+        self.tracer = OFF
         # sync-mode mirror of the last drained round's nonfinite set, read by
         # ReplicaServer
         self.last_nonfinite: set = set()
@@ -920,8 +924,15 @@ class TorchEngine:
         ``nan_guard``) starts as an async device->host copy of the step's
         outputs, enqueued before any later round can overwrite them;
         ``drain`` collects it one round later."""
+        tr = self.tracer
+        if tr.on:
+            span = tr.open("engine.dispatch", round=batch.round_idx)
+            part = tr.open("engine.stage")
         tokens, chunk_lens, use_last, sample_mask, sampled = self._stage(batch)
         C = tokens.shape[1]
+        if tr.on:
+            tr.close(part)
+            part = tr.open("engine.upload")
         if self.cfg.paged_kv:
             self._sync_block_tables(batch)
         graph = None
@@ -935,14 +946,29 @@ class TorchEngine:
         packed = self._copy_in(self._inputs(C), np.concatenate([
             tokens.reshape(-1), chunk_lens,
             use_last.astype(np.int32), sample_mask.astype(np.int32)]))
+        events = None
+        if tr.on:
+            tr.close(part)
+            part = tr.open("engine.replay")
+            if self.device.type == "cuda":
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
         t_dispatch = time.perf_counter()
         if self._t_ready is not None:
             self.bubble_ms.append((t_dispatch - self._t_ready) * 1e3)
-        toks = HostCopy(graph.replay() if graph is not None
-                        else self._packed_step(packed, C))
-        self.enqueue_ms.append((time.perf_counter() - t_dispatch) * 1e3)
+        if events is not None:
+            events[0].record()
+        out = graph.replay() if graph is not None else self._packed_step(packed, C)
+        if events is not None:
+            events[1].record()
+        toks = HostCopy(out)
         self.bucket_rounds[C] = self.bucket_rounds.get(C, 0) + 1
-        return InflightRound(toks=toks, sampled=sampled, t_dispatch=t_dispatch)
+        if tr.on:
+            tr.close(part)
+            tr.close(span, C=C, prefill_tokens=batch.prefill_tokens,
+                     decode_tokens=batch.decode_tokens, sampled=len(sampled))
+        return InflightRound(toks=toks, sampled=sampled, t_dispatch=t_dispatch,
+                             batch=batch, events=events)
 
     def drain(self, inflight: InflightRound) -> float:
         """Block until the round's sampled ids are host-side, then patch the
@@ -952,8 +978,14 @@ class TorchEngine:
         preemption already folded into a recompute prompt.  Returns
         dispatch->drain wall ms (device time plus whatever host work it
         overlapped)."""
+        tr = self.tracer
+        if tr.on:
+            span = tr.open("engine.drain", round=inflight.batch.round_idx)
+            wait = tr.open("engine.drain.wait")
         toks, *finite = inflight.toks.numpy()
         self._t_ready = time.perf_counter()
+        if tr.on:
+            tr.close(wait)
         wall_ms = (self._t_ready - inflight.t_dispatch) * 1e3
         if finite:
             inflight.nonfinite = {
@@ -973,6 +1005,12 @@ class TorchEngine:
             idx = inflight.out_index.get(req.req_id)
             if idx is not None:
                 req.patch_token(idx, tok)
+        if tr.on:
+            # the readback waited for the copy queued after the graph on
+            # the same stream: both events have completed
+            device = ({} if inflight.events is None else
+                      {"device_ms": inflight.events[0].elapsed_time(inflight.events[1])})
+            tr.close(span, wall_ms=wall_ms, **device)
         return wall_ms
 
     def execute(self, batch: ScheduledBatch) -> float:
@@ -1039,9 +1077,13 @@ class ReplicaServer:
         on_prefill_complete=None,
         on_stopped=None,
         name: str = "replica",
+        tracer: Optional[Tracer] = None,
     ):
         self.sched = scheduler
         self.engine = engine
+        # spans of this replica's loop, scheduler and engine (None: off)
+        self.tracer = tracer or OFF
+        scheduler.tracer = engine.tracer = self.tracer
         self.kv_pool = kv_pool
         self.collect_samples = collect_samples
         # multi-replica hook: called once per request in the round its
@@ -1129,6 +1171,8 @@ class ReplicaServer:
         if not self.sched.submit(req):         # admission-rejected: give back
             if self.kv_pool is not None:
                 self.kv_pool.release(req.req_id)
+        elif self.tracer.on:
+            self.tracer.queue_open(req.req_id)
 
     def adopt_handoff(self, req: Request, rec, reg) -> None:
         """Decode-pool side of a cross-replica handoff: land the exported
@@ -1176,6 +1220,17 @@ class ReplicaServer:
         round (injected or real) is converted into a crash unwind plus an
         ``"error"`` status the health machinery consumes, instead of tearing
         down the whole serve loop."""
+        if not self.tracer.on:
+            return self._step_guarded(now)
+        tr = self.tracer
+        span = tr.open("serve.step")
+        status = self._step_guarded(now)
+        # a step that neither scheduled nor drained records nothing
+        tr.close(span, drop_if_empty=True, status=status,
+                 round=self.sched._round - 1 if status == "round" else -1)
+        return status
+
+    def _step_guarded(self, now: float) -> str:
         if self.injector is None and not self.fault_tolerant:
             return self._step_impl(now)
         try:
@@ -1252,7 +1307,6 @@ class ReplicaServer:
                 # unwound from it before it dispatches.
                 self._drain_inflight(pending_batch=batch)
             self.inflight = engine.dispatch(batch)
-            self.inflight.batch = batch
             wall_ms = None
         else:
             wall_ms = engine.execute(batch)
@@ -1340,6 +1394,9 @@ class ReplicaServer:
         wall_ms = self.engine.drain(inflight)
         if self.collect_samples:
             self.lats.append(wall_ms)
+        tr = self.tracer
+        if tr.on:
+            span = tr.open("serve.deliver", round=inflight.batch.round_idx)
         # timestamps recorded against the placeholder `now` are re-stamped to
         # the moment the ids actually became host-visible — the earliest a
         # client could receive them — so pipelined LatencyReports are not
@@ -1393,6 +1450,9 @@ class ReplicaServer:
             if self.on_stopped is not None:
                 self.on_stopped(self, req)
         self._draining = None
+        if tr.on:
+            tr.close(span, tokens=sum(req.req_id not in inflight.nonfinite
+                                      for req, _slot in inflight.sampled))
 
     # -- crash unwind ----------------------------------------------------------
     def _crash_cleanup(self) -> None:
@@ -1504,6 +1564,7 @@ def serve(
     realtime_arrivals: bool = False,
     max_rounds: int = 200_000,
     robustness=None,
+    tracer: Optional[Tracer] = None,
 ) -> ServeResult:
     """Continuous-batching serve loop over real execution.
 
@@ -1529,12 +1590,14 @@ def serve(
     handling.  realtime_arrivals=False (default) admits requests by the
     engine's own clock (wall time since start), compressing idle gaps —
     deterministic and fast for tests; True sleeps to honor arrival times.
+    ``tracer`` (``repro_torch.tracing``) records the loop's spans.
     """
     pending = sorted(requests, key=lambda r: r.arrival_time)
     for r in pending:
         assert r.prompt_tokens is not None, "attach_prompt_tokens() first"
     server = ReplicaServer(
         scheduler, engine, kv_pool=kv_pool, collect_samples=collect_samples,
+        tracer=tracer,
     )
     if robustness is not None:
         # colocated fault tolerance: crash unwinds + NaN quarantine survive

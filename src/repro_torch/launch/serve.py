@@ -12,7 +12,10 @@ optional SLO tier and fault tolerance: ``--failover``, the NaN guard
 ``--disagg``, a fleet of prefill and decode replicas with cross-replica KV
 handoff.  The model is full width on one NVIDIA GPU (``--full``) or tiny;
 weights are the port's seeded random init.  ``--device cpu`` runs the plain
-PyTorch path.
+PyTorch path.  ``--spans PATH`` records the serve loop's spans
+(``repro_torch.tracing``), writes them as a Chrome trace and prints a
+summary of them; with ``--profile`` they are put on the profiler's clock and
+into its trace as well.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from repro_torch.core.predictor import (
 )
 from repro_torch.core.scheduler import ChunkedPrefillScheduler, SchedulerConfig
 from repro_torch.core.slo import SLOConfig
+from repro_torch import tracing
 from repro_torch.tenancy.tenants import FairnessConfig, TenantSpec
 from repro_torch.engine.engine import EngineConfig, TorchEngine, serve
 from repro_torch.engine.kv_cache import pool_for_model
@@ -178,6 +182,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="trace the serve run with torch.profiler: print the "
                          "ops by device time and the device-busy share, and "
                          "write a Chrome trace to this path")
+    ap.add_argument("--spans", default=None, metavar="SPANS_JSON",
+                    help="record the serve loop's spans, write them as a "
+                         "Chrome trace to this path and print their summary "
+                         "(with --profile: on the profiler's clock, and "
+                         "added to its trace); not with --disagg")
     return ap
 
 
@@ -432,16 +441,46 @@ def profiled(run, trace_path: str):
     return res
 
 
+def write_spans(tracer: tracing.Tracer, path: str, profile_path=None) -> None:
+    """The spans as a Chrome trace at ``path``; with the profiler's trace at
+    ``profile_path``, on its clock (through the tracer's anchors) and added
+    to it too.  Prints the summary."""
+    spans = tracer.spans()
+    to_us = None
+    if profile_path:
+        with open(profile_path) as f:
+            trace = json.load(f)
+        to_us = tracing.clock(tracer.anchors,
+                              tracing.chrome_anchors(trace["traceEvents"]))
+        trace["traceEvents"] += tracing.chrome_events(spans, to_us)
+        with open(profile_path, "w") as f:
+            json.dump(trace, f)
+    tracing.write_chrome(path, spans, to_us)
+    print(f"spans: {len(spans)} written to {path}")
+    for line in tracing.summary(spans):
+        print(f"  {line}")
+
+
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     if args.disagg:
+        if args.spans:
+            ap.error("--spans traces the colocated serve loop, not --disagg")
         return run_disagg(args)
     engine, sched, kv_pool, reqs = build(args)
+    tracer = tracing.Tracer() if args.spans else None
+    anchored = tracer is not None and args.profile
 
     def run():
-        return serve(reqs, sched, engine, kv_pool=kv_pool,
-                     collect_samples=False,
-                     robustness=robustness_from_args(args))
+        if anchored:
+            tracer.anchor()
+        res = serve(reqs, sched, engine, kv_pool=kv_pool,
+                    collect_samples=False,
+                    robustness=robustness_from_args(args), tracer=tracer)
+        if anchored:
+            tracer.anchor()
+        return res
 
     res = profiled(run, args.profile) if args.profile else run()
 
@@ -477,6 +516,8 @@ def main(argv=None):
                   f"violated={rep.violated} shed={rep.shed} "
                   f"attainment={rep.attainment:.2%} "
                   f"p50_ttft_slack={rep.ttft_slack_s['p50'] * 1e3:.1f} ms")
+    if tracer is not None:
+        write_spans(tracer, args.spans, args.profile)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"report": row, "rounds": res.rounds, "wall_s": res.wall_s,
