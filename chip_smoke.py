@@ -6,7 +6,7 @@
 Phases, each of which raises (exit code != 0) on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``).
-2. build: compile every CUDA kernel from ``csrc/`` (eleven libraries, one
+2. build: compile every CUDA kernel from ``csrc/`` (thirteen libraries, one
    ``nvcc`` per source, in parallel) and print ptxas's report of each:
    every kernel's (mangled) name, registers, spills and static shared
    memory, the tensor-core kernels (``*_wgmma_kernel``,
@@ -190,12 +190,13 @@ Phases, each of which raises (exit code != 0) on failure:
    printing the real tokens' expert choices dropped at capacity and the
    experts they reach per bucket (with the bound of the weights that
    data needs); the replays BITWISE equal to that eager engine's step at
-   every bucket (phase 21's check); then ``moe_ffn_scatter`` and
-   ``moe_ffn`` on layer 0's experts at T = 16 (capacity 1) and T = 2,048
-   (capacity 40) against a per-token reference (host top-k and each
-   impl's capacity walk): the output BITWISE equal to the combine of the
-   expert GEMMs' rows at the reference's slots, each of those rows within
-   one bf16 step plus the hidden move of the per-token SwiGLU.  Then
+   every bucket (phase 21's check); then ``moe_round`` (the engine
+   round's MoE) in both impls' capacity orders on layer 0's experts at T =
+   16 (capacity 1) and T = 2,048 (capacity 40) against a per-token
+   reference (host top-k and each impl's capacity walk): the output
+   BITWISE equal to the combine of the grouped kernels' rows on the
+   reference's kept pairs, each of those rows within one bf16 step plus
+   the hidden move of the per-token SwiGLU.  Then
    llava-next-mistral-7b's text backbone at full width and depth (32
    layers, 14.5 GB), served and gated the same way.  Each engine is freed
    before the next; the phase's seconds are printed.
@@ -279,7 +280,23 @@ Phases, each of which raises (exit code != 0) on failure:
    ``default_train_config``'s moment dtype) per device on both meshes
    under its own fsdp setting; every shard shape divides its dimension.
    No kernel may launch in (a).
-
+27. the grouped expert kernels (``kernels.grouped_swiglu``) at
+   ``arctic-1l.chat``'s shapes: one layer of arctic-480b, its 128 experts
+   (26.8 GB) dropless at capacity factor 64, the dense residual d_model
+   wide.  At t = 16, 256 and 2,048 lanes with the cell's real lanes (12,
+   25, 128): the layout's counts against the host's; each kernel at row
+   tiles 16 and 64 against its plain version (one bf16 step, or 2**-16 of
+   the row's largest |value|; the down kernel fed the gate/up kernel's
+   hidden values); each kernel's device time beside its bound (the touched
+   experts' weights and the rows, or 6 D F operations a row), the batched
+   GEMMs over the dropless (E, t, D) buffer and the whole layer both ways.
+   ``moe_round`` replayed from a CUDA graph BITWISE equal to the eager call
+   at every bucket, dropless and at capacity factor 1.25, the device
+   counter moved alike.  The cell's engine served through its graphs
+   (both kernels launch once per layer a round; ``L.expert_ffn`` is never
+   called, warm-up included), a traced serve's span summary (experts read
+   and rows per round by bucket), the replays BITWISE equal to an eager
+   engine's step at every bucket.  Run between phases 22 and 23.
 The second-to-last line is a JSON object listing every kernel with its
 numbers; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -374,6 +391,23 @@ class Timer:
 
     def device(self, fn) -> float:
         return self._median(fn, host_ahead=True)
+
+    def graph(self, fn):
+        """(fn()'s result from a CUDA graph replay, the replay's median ms):
+        ``fn`` captured once, as an engine round captures its layers, so
+        that no host enqueue time is counted."""
+        torch = self.torch
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn()                                # settle the stream first
+        torch.cuda.current_stream().wait_stream(stream)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream):
+            out = fn()
+        ms = self._median(g.replay, host_ahead=False)
+        del g
+        return out, ms
 
     def _median(self, fn, host_ahead) -> float:
         torch = self.torch
@@ -2607,11 +2641,14 @@ def param_bytes(tree) -> int:
 
 def round_bound(cfg, params, B, C):
     """The least time of one round of ``B`` slots at chunk bucket ``C`` on
-    the card: the weights it must read once (every layer's, every expert
-    included -- the expert GEMMs run every expert's capacity slots -- the
-    unembedding, and the embedding rows it gathers; KV bytes left out, a
-    few percent here) over HBM, against its GEMMs' operations over the bf16
-    peak.  (ms, "bytes" or "operations", bytes)."""
+    the card as the batched expert GEMMs ran it: the weights it must read
+    once (every layer's, every expert included, the unembedding, and the
+    embedding rows it gathers; KV bytes left out, a few percent here) over
+    HBM, against its GEMMs' operations (every expert's capacity slots) over
+    the bf16 peak.  The grouped expert kernels read only the experts a
+    round reaches, so a MoE round may beat it: phase 22 prints the bound of
+    the weights the data needs beside it.  (ms, "bytes" or "operations",
+    bytes)."""
     from repro_torch.models import layers as L
 
     T, D = B * C, cfg.d_model
@@ -2644,50 +2681,42 @@ def log_rounds(cfg, params, by_bucket, B) -> None:
             f"GB of weights); mean / bound {statistics.mean(xs) / b_ms:.2f}")
 
 
-def counted_drops(torch, engine, reqs_fn):
-    """Run ``reqs_fn()`` (a serve on the EAGER ``engine``) while counting,
+def counted_drops(torch, reqs_fn):
+    """Run ``reqs_fn()`` (a serve on an EAGER engine) while counting,
     by chunk bucket, the real tokens' expert choices that the scatter
     dispatch drops at capacity and the experts that the kept ones reach:
-    the rounds' MoE inputs routed again through the port's own routing and
-    capacity order (``moe_route``, ``capacity_rows``).  Returns (reqs_fn's
+    each round's MoE inputs (``moe_round``'s) routed again through the
+    port's own routing and the reference's capacity order (``moe_route``,
+    ``capacity_rows``).  Returns (reqs_fn's
     result, {C: (dropped, real choices, experts reached summed over the
     MoE layers of the bucket's rounds, those layer-rounds)})."""
     from repro_torch.models import layers as L
 
-    state = {}
     counts = {}
-    step, moe = engine._step, L.moe_ffn_scatter
+    moe = L.moe_round
 
-    def step_rec(tokens, chunk_lens, use_last, sample_mask):
-        C = tokens.shape[1]
-        state["C"] = C
-        state["real"] = (torch.arange(C, device=tokens.device)[None, :]
-                         < chunk_lens[:, None]).reshape(-1)
-        return step(tokens, chunk_lens, use_last, sample_mask)
-
-    def moe_rec(p, x, cfg, group_size=0):
+    def moe_rec(p, x, cfg, lane_mask, moe_counts=None, group_size=0):
         m = cfg.moe
         xg = L.moe_groups(x, group_size)
         G, t, _ = xg.shape
         _, top_idx = L.moe_route(p, xg, m.top_k)
         cap = L.moe_capacity(t, m.n_experts, m.top_k, m.capacity_factor)
         dest = L.capacity_rows(top_idx, m.n_experts, cap, "token")
-        real = state["real"].view(G, t, 1)
+        real = lane_mask.reshape(G, t, 1)
         dropped = dest == m.n_experts * G * cap
         reached = (torch.nn.functional.one_hot(top_idx, m.n_experts)
                    * (real & ~dropped)[..., None]).amax((0, 1, 2))
-        c = counts.setdefault(state["C"], [])
+        c = counts.setdefault(x.shape[1], [])
         c.append(torch.stack([(dropped & real).sum(), real.sum() * m.top_k,
                               reached.sum()]))
-        return moe(p, x, cfg, group_size)
+        return moe(p, x, cfg, lane_mask, moe_counts, group_size)
 
-    engine._step, L.moe_ffn_scatter = step_rec, moe_rec
+    L.moe_round = moe_rec
     try:
         out = reqs_fn()
         torch.cuda.synchronize()
     finally:
-        del engine._step
-        L.moe_ffn_scatter = moe
+        L.moe_round = moe
     return out, {C: tuple(int(v) for v in torch.stack(c).sum(0)) + (len(c),)
                  for C, c in counts.items()}
 
@@ -2722,23 +2751,24 @@ def capacity_slots(idx, E, cap, impl):
 
 
 def moe_token_check(torch, p, cfg, B, S, impl, gen):
-    """``moe_ffn_scatter`` (``impl="scatter"``) or ``moe_ffn`` on random
-    bf16 rows x (B, S, D) against the reference computed per token: the
+    """``moe_round`` (the engine round's MoE; ``impl`` "scatter" or
+    "onehot": its capacity order and combine) on random bf16 rows x (B, S,
+    D), every lane real, against the reference computed per token: the
     top-k of the f32 router probabilities on the host (largest first, the
-    lowest index among equals), the renormalised weights, each impl's
-    capacity walk (``capacity_slots``) and, for every kept (token, choice),
-    the token through its expert's SwiGLU (the tokens of one expert stacked
-    in one GEMM: its rows are independent).  Gates: (1) the impl's output
-    BITWISE equal to the combine, in the impl's dtype rule, of the expert
-    rows that the expert GEMMs (``L.expert_ffn``) give on the buffer the
-    reference fills (each kept token at its slot): routing, drops, dispatch
-    and combine exact; (2) each kept row of those GEMMs within one bf16
-    step (phase 3's rule; its 2e-2 cap, an attention output's size, replaced
-    by a floor of 2**-16 of the row's largest |y|, the f32 sums' own noise
-    at these magnitudes) of the per-token SwiGLU, plus the move of the
-    hidden values that round differently (phase 15's accounting).
-    Returns a dict of counts and errors."""
+    lowest index among equals), the renormalised weights and each impl's
+    capacity walk (``capacity_slots``).  Gates: (1) the output BITWISE
+    equal to the combine, in the impl's dtype rule, of the expert rows that
+    the grouped kernels give on the reference's kept (token, choice) pairs
+    (a layout built from the host's walk): routing, drops, the layout and
+    the combine exact; (2) each kept row within one bf16 step (phase 3's
+    rule; its 2e-2 cap, an attention output's size, replaced by a floor of
+    2**-16 of the row's largest |y|, the f32 sums' own noise at these
+    magnitudes) of the per-token SwiGLU (the tokens of one expert stacked
+    in one GEMM: its rows are independent), plus the move of the hidden
+    values that round differently (phase 15's accounting).  Returns a dict
+    of counts and errors."""
     import numpy as np
+    from repro_torch.kernels import grouped_swiglu as GK
     from repro_torch.models import layers as L
 
     m, D = cfg.moe, cfg.d_model
@@ -2746,9 +2776,11 @@ def moe_token_check(torch, p, cfg, B, S, impl, gen):
     T = B * S
     require(T <= L.MOE_GROUP_SIZE, "one capacity group")
     cap = L.moe_capacity(T, E, K, m.capacity_factor)
+    require(cap < T, "the capacity-bound case: every lane takes capacity")
+    icfg = dataclasses.replace(cfg, moe_impl=impl)
     x = torch.randn((B, S, D), generator=gen, device="cuda").to(torch.bfloat16)
-    got = (L.moe_ffn_scatter if impl == "scatter" else L.moe_ffn)(
-        p, x, cfg).reshape(T, D)
+    lanes = torch.ones((B, S), dtype=torch.bool, device="cuda")
+    got = L.moe_round(p, x, icfg, lanes).reshape(T, D)
     xf = x.reshape(T, D)
     probs = torch.softmax(xf.float() @ p["router"], dim=-1).cpu().numpy()
     idx = np.argsort(-probs, axis=1, kind="stable")[:, :K]
@@ -2756,14 +2788,15 @@ def moe_token_check(torch, p, cfg, B, S, impl, gen):
     w = w / np.maximum(w.sum(1, keepdims=True), np.float32(1e-9))
     slot = capacity_slots(idx, E, cap, impl)
     tt, jj = np.nonzero(slot >= 0)
-    ee, ss = idx[tt, jj], slot[tt, jj]
+    ee = idx[tt, jj]
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
-    buf = torch.zeros((E, cap, D), dtype=x.dtype, device="cuda")
-    buf[dev(ee), dev(ss)] = xf[dev(tt)]
-    y_all = L.expert_ffn(p, buf)
-    h_all = L.expert_hidden(p, buf)
+    lay = GK.expert_layout(dev(idx), dev(slot >= 0), E)
+    h_all = GK.grouped_gate_up(xf, p["w_gate"], p["w_up"], lay.tok,
+                               lay.tiles, lay.n_tiles)
+    y_all = GK.grouped_down(h_all, p["w_down"], lay.tiles, lay.n_tiles)
+    at = lay.row[dev(tt), dev(jj)]           # each kept pair's row
     rows = torch.zeros((T, K, D), dtype=x.dtype, device="cuda")
-    rows[dev(tt), dev(jj)] = y_all[dev(ee), dev(ss)]
+    rows[dev(tt), dev(jj)] = y_all[at]
     wt = dev(w)
     if impl == "scatter":
         want = (rows * wt.to(x.dtype)[..., None]).sum(1)
@@ -2783,8 +2816,8 @@ def moe_token_check(torch, p, cfg, B, S, impl, gen):
         h_tok = (torch.nn.functional.silu(xe @ p["w_gate"][e])
                  * (xe @ p["w_up"][e]))
         y_tok = (h_tok @ p["w_down"][e]).float()
-        h_b = h_all[e, dev(ss[sel])]
-        y_b = y_all[e, dev(ss[sel])].float()
+        h_b = h_all[at[dev(sel)]]
+        y_b = y_all[at[dev(sel)]].float()
         moved = (h_b.float() - h_tok.float()).abs() @ p["w_down"][e].float().abs()
         floor = 2.0 ** -16 * y_tok.abs().amax(1, keepdim=True)
         step = TOL_BF16[0] + TOL_BF16[1] * y_tok.abs()
@@ -2808,7 +2841,7 @@ def moe_vlm_phase(torch):
     workload's requests) and gated as phase 20; the same requests served by
     an eager engine sharing its weights, counting the real tokens dropped
     at capacity; the replays bitwise against that eager engine's step at
-    every bucket; ``moe_ffn_scatter`` and ``moe_ffn`` on layer 0's experts
+    every bucket; ``moe_round`` in both impls' orders on layer 0's experts
     against the per-token reference; then llava-next-mistral-7b's backbone
     at full width and depth, served and gated the same way."""
     import dataclasses
@@ -2851,7 +2884,7 @@ def moe_vlm_phase(torch):
         ereqs = serve_cli.workload(args, cfg)
         return ereqs, serve(ereqs, sched, e, kv_pool=e_pool)
 
-    (ereqs, eres), drops = counted_drops(torch, e, eager_serve)
+    (ereqs, eres), drops = counted_drops(torch, eager_serve)
     etoks = check_outputs(eres, ereqs, cfg.vocab_size)
     e_pool.reset()
     same = sum(res.outputs[a.req_id] == eres.outputs[b.req_id]
@@ -2890,10 +2923,11 @@ def moe_vlm_phase(torch):
     for B, S in MOE_CHECKS:
         for impl in ("scatter", "onehot"):
             r = moe_token_check(torch, moe0, cfg, B, S, impl, gen)
-            log(f"  per-token check, {impl}, T={r['T']} (capacity "
+            log(f"  per-token check of moe_round, {impl}, T={r['T']} (capacity "
                 f"{r['capacity']}): {r['kept']} choices kept, "
                 f"{r['dropped']} dropped; output bitwise equal to the "
-                "per-token routing, drops and combine; expert rows within one "
+                "per-token routing, drops and combine of the grouped "
+                "kernels' rows; expert rows within one "
                 f"bf16 step plus the hidden move of the per-token SwiGLU (max "
                 f"|d| {r['max_err']:.3e}; {r['over_step']} values over one "
                 f"step; {r['hidden_differ']} hidden values round otherwise)")
@@ -2918,6 +2952,371 @@ def moe_vlm_phase(torch):
     del v, v_pool
     torch.cuda.empty_cache()
     log(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phase 27: the grouped expert kernels --------------------------------------
+GROUPED_SLOTS = 16      # arctic-1l.chat's slots
+# (lanes t = 16 x C, real lanes) of the cell's rounds: a decode round with
+# ~11.5 of 16 slots held at 9.6 req/s; a C = 16 round of ~25 real tokens
+# (the traced segment's ~3,500 decode and ~2,700 prefill tokens over ~340
+# rounds); a C = 128 round of the token budget, 128
+GROUPED_CASES = ((16, 12), (256, 25), (2048, 128))
+GROUPED_DECODES = 11    # decode slots of a mixed round; the rest one chunk
+
+
+def cell_cfg(capacity_factor):
+    """``arctic-1l``'s program config (bench/configs/arctic-1l.json): one
+    of arctic-480b's layers, the dense residual d_model wide, the experts'
+    capacity factor ``capacity_factor`` (64 = E / K: dropless)."""
+    from repro_torch.configs import get_config
+    full = get_config("arctic-480b")
+    return dataclasses.replace(
+        full, n_layers=1, d_ff=full.d_model,
+        moe=dataclasses.replace(full.moe, capacity_factor=capacity_factor))
+
+
+def round_lanes(torch, C, n_real):
+    """(16, C) bool: the real lanes of a round of bucket C holding n_real
+    tokens, laid out as the engine lays them: decodes at lane 0 of their
+    slots, prefill chunks from lane 0 of the next ones."""
+    mask = torch.zeros((GROUPED_SLOTS, C), dtype=torch.bool, device="cuda")
+    if C == 1:
+        mask[:n_real] = True
+        return mask
+    mask[:GROUPED_DECODES, 0] = True
+    left, slot = n_real - GROUPED_DECODES, GROUPED_DECODES
+    while left > 0 and slot < GROUPED_SLOTS:
+        mask[slot, : min(C, left)] = True
+        left, slot = left - C, slot + 1
+    return mask
+
+
+def grouped_bound(n_experts_read, n_rows, D, F, gated):
+    """(ms, by) of one grouped kernel: the touched experts' weights (2 D F
+    or D F bf16 each), the rows read and written, against 4 or 2 n D F
+    operations."""
+    w = (2 if gated else 1) * D * F * 2
+    rows = n_rows * (D + F) * 2
+    return bound_ms(n_experts_read * w + rows,
+                    (4 if gated else 2) * n_rows * D * F)
+
+
+def rows_within_step(got, want, what):
+    """Each value within one bf16 step of ``want`` (TOL_BF16) or, at
+    values near 0, within 2**-16 of its row's largest |want| (the f32
+    sums' own noise); returns (max |d|, values that differ)."""
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    floor = 2.0 ** -16 * w.abs().amax(1, keepdim=True)
+    bad = err > torch.maximum(TOL_BF16[0] + TOL_BF16[1] * w.abs(), floor)
+    require(not bool(bad.any()),
+            f"{what}: {int(bad.sum())} values off the plain version by more "
+            f"than one bf16 step (max |d| {err.max().item():.3e})")
+    return err.max().item(), int((got != want).sum())
+
+
+def grouped_kernels(torch, timer, p, xf, idx, kept, what, timed=True):
+    """The two grouped kernels on rows xf (t, D) routed to ``idx`` (t, K)
+    where ``kept``: each against its plain version (the down kernel fed the
+    gate/up kernel's h, so a hidden value rounded the other way is charged
+    once), the layout's counts against a host count; with ``timed``, each
+    kernel's device time and both plain versions' time."""
+    import numpy as np
+    from repro_torch.kernels import grouped_swiglu as GK
+
+    E = p["w_gate"].shape[0]
+    host = idx.cpu().numpy()[kept.cpu().numpy()]
+    counts = np.bincount(host.reshape(-1), minlength=E)
+    n_rows = int(counts.sum())
+    lay = GK.expert_layout(idx, kept, E)
+    require(bool((lay.counts.cpu().numpy() == counts).all()),
+            f"{what}: the layout's counts differ from the host's")
+    args = (lay.tok, lay.tiles, lay.n_tiles)
+    h = GK.grouped_gate_up(xf, p["w_gate"], p["w_up"], *args)
+    h_p = GK.grouped_gate_up_plain(xf, p["w_gate"], p["w_up"], *args)
+    y = GK.grouped_down(h, p["w_down"], lay.tiles, lay.n_tiles)
+    y_p = GK.grouped_down_plain(h, p["w_down"], lay.tiles, lay.n_tiles)
+    torch.cuda.synchronize()
+    h_err, h_flips = rows_within_step(h[:n_rows], h_p[:n_rows],
+                                      f"gate/up {what}")
+    y_err, _ = rows_within_step(y[:n_rows], y_p[:n_rows], f"down {what}")
+    out = {"rows": n_rows, "experts": int((counts > 0).sum()),
+           "most_rows": int(counts.max()), "h_err": h_err,
+           "h_flips": h_flips, "y_err": y_err}
+    if timed:
+        out["ms_up"] = timer.device(
+            lambda: GK.grouped_gate_up(xf, p["w_gate"], p["w_up"], *args))
+        out["ms_down"] = timer.device(
+            lambda: GK.grouped_down(h, p["w_down"], lay.tiles, lay.n_tiles))
+        out["plain_ms"] = timer(lambda: GK.grouped_down_plain(
+            GK.grouped_gate_up_plain(xf, p["w_gate"], p["w_up"], *args),
+            p["w_down"], lay.tiles, lay.n_tiles))
+    return out
+
+
+def grouped_case(torch, timer, p, cfg, t, n_real, gen, timed=True):
+    """The two grouped kernels at one of the cell's shapes (t lanes, n_real
+    real, the dropless cell's routing of random bf16 rows), checked and
+    timed by ``grouped_kernels``; with ``timed``, the bounds, the batched
+    GEMMs' (``L.expert_ffn`` over the dropless (E, t, D) buffer) and the
+    whole layer's time both ways (CUDA graph replays)."""
+    from repro_torch.models import layers as L
+
+    m, D = cfg.moe, cfg.d_model
+    E, K, F = m.n_experts, m.top_k, m.d_ff
+    C = t // GROUPED_SLOTS
+    x = torch.randn((GROUPED_SLOTS, C, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    mask = round_lanes(torch, C, n_real)
+    xf = x.reshape(t, D)
+    _, top_idx = L.moe_route(p, xf[None], K)
+    kept = mask.reshape(t, 1).expand(t, K)
+    out = {"t": t, "real": n_real}
+    out.update(grouped_kernels(torch, timer, p, xf, top_idx[0], kept,
+                               f"t={t}", timed))
+    out["bound_up"] = grouped_bound(out["experts"], out["rows"], D, F, True)
+    out["bound_down"] = grouped_bound(out["experts"], out["rows"], D, F,
+                                      False)
+    if timed:
+        buf = torch.zeros((E, t, D), dtype=x.dtype, device="cuda")
+        out["bmm_ms"] = timer.device(lambda: L.expert_ffn(p, buf))
+        del buf
+        torch.cuda.empty_cache()
+        out["layer_ms"] = timer.graph(lambda: L.moe_round(p, x, cfg, mask))[1]
+        out["layer_bmm_ms"] = timer.graph(
+            lambda: L.moe_ffn_scatter(p, x, cfg))[1]
+        torch.cuda.empty_cache()
+    return out
+
+
+def log_grouped_case(r) -> None:
+    (b_up, by_up), (b_dn, by_dn) = r["bound_up"], r["bound_down"]
+    line = (f"  t={r['t']} ({r['real']} real lanes): {r['rows']} expert rows "
+            f"over {r['experts']} experts; h within one step (max |d| "
+            f"{r['h_err']:.3e}, {r['h_flips']} rounded otherwise), y max |d| "
+            f"{r['y_err']:.3e}")
+    if "ms_up" in r:
+        line += f", gate/up {r['ms_up']:.4f} ms, down {r['ms_down']:.4f} ms"
+    log(line)
+    if "bmm_ms" in r:
+        both = r["ms_up"] + r["ms_down"]
+        log(f"    bound: gate/up {b_up:.4f} ms ({by_up}), down {b_dn:.4f} ms "
+            f"({by_dn}); kernels at {b_up / r['ms_up']:.1%} / "
+            f"{b_dn / r['ms_down']:.1%} of their bounds, together "
+            f"{(b_up + b_dn) / both:.1%}; plain {r['plain_ms']:.3f} ms; the "
+            f"batched GEMMs over every expert's (E, t, D) buffer "
+            f"{r['bmm_ms']:.3f} ms ({r['bmm_ms'] / both:.1f}x); the whole "
+            f"layer {r['layer_ms']:.3f} ms against moe_ffn_scatter's "
+            f"{r['layer_bmm_ms']:.3f} ms")
+
+
+# (config, buckets) of the capacity-bound rounds timed in phase 27: all 16
+# lanes of each slot take capacity at the published factor 1.25
+CAPACITY_ROUNDS = (("arctic-480b", (1, 16, 32, 64, 128)),
+                   ("mixtral-8x7b", (1, 16, 24, 32, 48, 64, 128)))
+
+
+def capacity_bound_rounds(torch, timer, p_arctic):
+    """The MoE layer of capacity-bound rounds (arctic-480b and
+    mixtral-8x7b at capacity factor 1.25, every lane real): by bucket, the
+    grouped kernels (checked against their plain versions) and
+    ``moe_round`` against the batched GEMMs' layer (``moe_ffn_scatter``),
+    and which of the two ``moe_round`` runs (``GROUPED_MAX_CAPACITY``),
+    each layer timed as a CUDA graph replay (``moe_round``'s BITWISE equal
+    to its eager call, on both sides of the choice).  mixtral's engine
+    rounds stop at its sliding window's assertion; its layer is timed at
+    the shapes its rounds would have.  Returns the rows logged."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(271)
+    out = []
+    for name, buckets in CAPACITY_ROUNDS:
+        cfg = dataclasses.replace(get_config(name), n_layers=1)
+        m = cfg.moe
+        p = (p_arctic if name == "arctic-480b" else
+             L.init_moe(gen, cfg, torch.bfloat16, "cuda"))
+        for C in buckets:
+            t = GROUPED_SLOTS * C
+            x = torch.randn((GROUPED_SLOTS, C, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            lanes = torch.ones((GROUPED_SLOTS, C), dtype=torch.bool,
+                               device="cuda")
+            cap = L.moe_capacity(t, m.n_experts, m.top_k, m.capacity_factor)
+            xf = x.reshape(t, cfg.d_model)
+            _, top_idx = L.moe_route(p, xf[None], m.top_k)
+            kept = L.capacity_rank(top_idx, "token")[0] < cap
+            r = grouped_kernels(torch, timer, p, xf, top_idx[0], kept,
+                                f"{name} C={C}")
+            got, layer_ms = timer.graph(lambda: L.moe_round(p, x, cfg, lanes))
+            require(same_bits(got, L.moe_round(p, x, cfg, lanes)),
+                    f"{name} C={C}: moe_round's replay differs from the "
+                    "eager call")
+            r.update(name=name, C=C, capacity=cap,
+                     batched=cap > L.GROUPED_MAX_CAPACITY, layer_ms=layer_ms,
+                     layer_bmm_ms=timer.graph(
+                         lambda: L.moe_ffn_scatter(p, x, cfg))[1])
+            log(f"  {name} C={C} (t={t}, capacity {cap}): {r['rows']} kept "
+                f"rows over {r['experts']} experts, at most "
+                f"{r['most_rows']}; grouped kernels {r['ms_up']:.4f} + "
+                f"{r['ms_down']:.4f} ms (h max |d| {r['h_err']:.3e}, y max "
+                f"|d| {r['y_err']:.3e}); moe_round "
+                f"{r['layer_ms']:.3f} ms ("
+                + ("the batched GEMMs" if r["batched"] else "grouped")
+                + f") against moe_ffn_scatter's {r['layer_bmm_ms']:.3f} ms")
+            out.append(r)
+            torch.cuda.empty_cache()
+        del p
+        torch.cuda.empty_cache()
+    return out
+
+
+def grouped_graph_check(torch, p, cfg):
+    """``L.moe_round`` captured in a CUDA graph at every bucket of the cell
+    (16 x C lanes, the cell's real lanes at C = 1, 16 and 128 and a
+    quarter of the lanes at the others): each replay BITWISE equal to the
+    eager call on the same inputs, and the device counter moved by the
+    same (experts read, rows) both ways.  Returns {C: (experts, rows)}."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    counter = torch.zeros(2, dtype=torch.long, device="cuda")
+    stream = torch.cuda.Stream()
+    real = dict(GROUPED_CASES)
+    seen = {}
+    for C in (1, 16, 32, 64, 128):
+        t = GROUPED_SLOTS * C
+        x = torch.randn((GROUPED_SLOTS, C, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        mask = round_lanes(torch, C, real.get(t, t // 4))
+        before = counter.clone()
+        want = L.moe_round(p, x, cfg, mask, counter)
+        eager = counter - before
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            L.moe_round(p, x, cfg, mask)          # settle the stream first
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            got = L.moe_round(p, x, cfg, mask, counter)
+        before = counter.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        require(same_bits(got, want),
+                f"capacity factor {cfg.moe.capacity_factor} C={C}: the "
+                "replay differs from the eager call")
+        require(bool(((counter - before) == eager).all()),
+                f"C={C}: the replay moved the counter by "
+                f"{(counter - before).tolist()}, the eager call by "
+                f"{eager.tolist()}")
+        seen[C] = tuple(eager.tolist())
+        del graph, got
+    torch.cuda.empty_cache()
+    return seen
+
+
+def grouped_expert_phase(torch, timed=True):
+    """Phase 27: the grouped expert kernels at ``arctic-1l.chat``'s shapes
+    (one layer of arctic-480b, 128 experts top-2, dropless at capacity 64;
+    26.8 GB of seeded experts).  (a) At t = 16, 256 and 2,048 lanes with the
+    cell's real lanes: each kernel against its plain version; with
+    ``timed``, each kernel's device time beside its bound, the batched
+    GEMMs' (E, t, D) path and the whole layer both ways, then the
+    capacity-bound rounds of arctic-480b and mixtral-8x7b at 1.25 by bucket
+    (``capacity_bound_rounds``).  (b)
+    ``moe_round`` replayed from a CUDA graph BITWISE equal to the eager call
+    at every bucket, dropless (64) and capacity-bound (1.25), the counter
+    moved alike.  (c) The cell's engine served through its graphs: the
+    grouped kernels launch once per layer a round, the batched expert GEMMs
+    never; a traced serve's summary (experts read per round by bucket); the
+    replays BITWISE equal to an eager engine's step at every bucket.
+    Returns the kernel table's rows."""
+    from repro_torch.engine.engine import serve
+    from repro_torch.kernels import grouped_swiglu as GK
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import layers as L
+    from repro_torch import tracing
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cell_cfg(64.0)
+    bmm_calls = []
+    expert_ffn = L.expert_ffn
+
+    def counted(p, buf):
+        bmm_calls.append(tuple(buf.shape))
+        return expert_ffn(p, buf)
+
+    L.expert_ffn = counted
+    try:
+        t0 = time.perf_counter()
+        g, g_pool, args = build_at_width(torch, cfg)
+        log(f"  {cfg.name} as arctic-1l: 1 layer, {cfg.moe.n_experts} experts "
+            f"top-{cfg.moe.top_k} of d_ff {cfg.moe.d_ff}, dense residual "
+            f"{cfg.d_ff}, capacity factor {cfg.moe.capacity_factor}; weights "
+            f"{param_bytes(g.params) / 1e9:.2f} GB, built and warmed up in "
+            f"{time.perf_counter() - t0:.2f} s ({len(g.graphs)} graphs)")
+        require(not bmm_calls, f"the batched expert GEMMs ran at warm-up: "
+                f"{bmm_calls}")
+        p = g.params["layers"][0]["moe"]
+        timer = Timer(torch)
+        gen = torch.Generator(device="cuda").manual_seed(270)
+        rows = {}
+        for t, n_real in GROUPED_CASES:
+            r = grouped_case(torch, timer, p, cfg, t, n_real, gen, timed)
+            log_grouped_case(r)
+            rows[t] = r
+        if timed:
+            capacity_bound_rounds(torch, timer, p)
+        for cf in (64.0, 1.25):
+            seen = grouped_graph_check(torch, p, cell_cfg(cf))
+            log(f"  moe_round at capacity factor {cf}: replays bitwise equal "
+                "to the eager call at every bucket, the counter alike; "
+                "(experts read, rows) by C: " + ", ".join(
+                    f"C={C} {e}/{n}" for C, (e, n) in seen.items()))
+        bmm_calls.clear()       # the cases' deliberate yardstick calls
+        res, reqs, toks, launches, spans = gated_serve(torch, g, g_pool, args)
+        log_served(res, toks, g, launches)
+        n_rounds = sum(g.bucket_rounds.values())
+        for name in ("grouped_gate_up", "grouped_down"):
+            require(launches[name] == cfg.n_layers * n_rounds,
+                    f"{name} launched {launches[name]} times over "
+                    f"{n_rounds} rounds of {cfg.n_layers} layer(s)")
+        require(not bmm_calls, f"the batched expert GEMMs ran: {bmm_calls}")
+        tracer = tracing.Tracer()
+        sched = serve_cli.build_scheduler(args)
+        treqs = serve_cli.workload(args, cfg)
+        serve(treqs, sched, g, kv_pool=g_pool, tracer=tracer)
+        g_pool.reset()
+        for line in tracing.summary(tracer.spans()):
+            log(f"  traced serve: {line}")
+        e, e_pool, _ = build_at_width(torch, cfg, params=g.params,
+                                      cuda_graphs=False)
+        bitwise_rounds(torch, g, e, "arctic-1l", g.cfg.max_context, 240,
+                       (250, 245))
+        log("  the cell's replays bitwise equal to the eager step at every "
+            "bucket and at C=1 again")
+        require(not bmm_calls, f"the batched expert GEMMs ran: {bmm_calls}")
+    finally:
+        L.expert_ffn = expert_ffn
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB allocated; phase 27 took {time.perf_counter() - t_phase:.1f} s")
+    table = {}
+    if timed:
+        r = rows[16]
+        for name, ms, (b_ms, by) in (
+                ("grouped_gate_up", r["ms_up"], r["bound_up"]),
+                ("grouped_down", r["ms_down"], r["bound_down"])):
+            table[name] = {"max_abs_err": r["y_err"] if "down" in name
+                           else r["h_err"], "ms": ms,
+                           "plain_ms": r["plain_ms"], "bound_ms": b_ms,
+                           "bound_by": by, "library_ms": r["bmm_ms"],
+                           "launches": launches[name]}
+    del g, g_pool, e, e_pool, p
+    torch.cuda.empty_cache()
+    return table
 
 
 # -- phase 23: the whole-prompt prefill and decode -----------------------------
@@ -4251,6 +4650,11 @@ def main() -> int:
     moe_vlm_phase(torch)
     torch.cuda.empty_cache()
 
+    log("== the grouped expert kernels at arctic-1l.chat's shapes (1 layer, "
+        "128 experts, dropless), the cell served")
+    grouped_kern = grouped_expert_phase(torch)
+    torch.cuda.empty_cache()
+
     log("== the whole-prompt prefill and decode: qwen1.5-0.5b against the "
         f"chunked kernel path, flash against naive, mixtral-8x7b's ring "
         f"({MIXTRAL_LAYERS} layers), the torch examples")
@@ -4288,6 +4692,8 @@ def main() -> int:
             "src/repro/kernels/chunked_prefill_attention.py:144",
         "decode_attention": "src/repro/kernels/decode_attention.py:115",
         "fused_swiglu": "src/repro/kernels/fused_swiglu.py:85",
+        "grouped_gate_up": "none (repro's MoE layers are plain jnp)",
+        "grouped_down": "none (repro's MoE layers are plain jnp)",
     }
     # each kernel's launches come from the run of its own path: split
     # attention from the recompute main path, fused attention from the fused
@@ -4301,10 +4707,11 @@ def main() -> int:
                      "chunked_prefill_attention":
                          dense_launches["chunked_prefill_attention"],
                      **{n: standalone_launches[n]
-                        for n in ("decode_attention", "fused_swiglu")}}
+                        for n in ("decode_attention", "fused_swiglu")},
+                     **{n: r["launches"] for n, r in grouped_kern.items()}}
     kernels = []
     for name, rep in {**kern, **swap_kern, **dense_kern,
-                      **swiglu_kern}.items():
+                      **swiglu_kern, **grouped_kern}.items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",

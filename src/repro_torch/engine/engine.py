@@ -203,6 +203,9 @@ class InflightRound:
     # CUDA events around the replay while a tracer is on: the round's
     # device ms, read at drain
     events: Optional[Tuple[object, object]] = None
+    # the MoE counter (experts read, expert rows) copied to the host before
+    # and after the replay while a tracer is on: the round's counts
+    moe_counts: Optional[Tuple[HostCopy, HostCopy]] = None
 
 
 class TorchEngine:
@@ -229,6 +232,12 @@ class TorchEngine:
         self.params = params
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed + 1)
+        # the rounds' cumulative (experts read, expert rows), added to on
+        # the device by every round (its graphs' too, so allocated before
+        # any capture); a tracer reads it around each replay
+        self._moe_counts = (torch.zeros(2, dtype=torch.long,
+                                        device=self.device)
+                            if model_cfg.moe is not None else None)
         # the compiled round: one RoundGraph per chunk bucket, all in one
         # memory pool (they never run at once), captured on a stream of
         # this engine's own (the decode kernels' ticket buffer is per
@@ -386,10 +395,12 @@ class TorchEngine:
                 self.block_tables, pages_per_tile=self.cfg.pages_per_tile,
                 kv_layout=self.cfg.kv_layout,
                 buffering_depth=self.cfg.buffering_depth,
+                moe_counts=self._moe_counts,
             )
         else:
             logits = impl.chunked_step(self.params, tokens, self.cache,
-                                       self.lens, chunk_lens)
+                                       self.lens, chunk_lens,
+                                       moe_counts=self._moe_counts)
         toks = sample_tokens(logits, self._gen, self.cfg.sampler)
         self.last_token.copy_(torch.where(sample_mask, toks, self.last_token))
         self.lens.add_(chunk_lens)
@@ -956,11 +967,17 @@ class TorchEngine:
         t_dispatch = time.perf_counter()
         if self._t_ready is not None:
             self.bubble_ms.append((t_dispatch - self._t_ready) * 1e3)
+        moe = tr.on and self._moe_counts is not None
         if events is not None:
             events[0].record()
+        if moe:
+            moe_before = HostCopy(self._moe_counts.clone())
         out = graph.replay() if graph is not None else self._packed_step(packed, C)
         if events is not None:
             events[1].record()
+        # (before the ids' copy, whose event the drain waits on)
+        moe_counts = ((moe_before, HostCopy(self._moe_counts.clone()))
+                      if moe else None)
         toks = HostCopy(out)
         self.bucket_rounds[C] = self.bucket_rounds.get(C, 0) + 1
         if tr.on:
@@ -968,7 +985,7 @@ class TorchEngine:
             tr.close(span, C=C, prefill_tokens=batch.prefill_tokens,
                      decode_tokens=batch.decode_tokens, sampled=len(sampled))
         return InflightRound(toks=toks, sampled=sampled, t_dispatch=t_dispatch,
-                             batch=batch, events=events)
+                             batch=batch, events=events, moe_counts=moe_counts)
 
     def drain(self, inflight: InflightRound) -> float:
         """Block until the round's sampled ids are host-side, then patch the
@@ -1008,9 +1025,13 @@ class TorchEngine:
         if tr.on:
             # the readback waited for the copy queued after the graph on
             # the same stream: both events have completed
-            device = ({} if inflight.events is None else
-                      {"device_ms": inflight.events[0].elapsed_time(inflight.events[1])})
-            tr.close(span, wall_ms=wall_ms, **device)
+            attrs = ({} if inflight.events is None else
+                     {"device_ms": inflight.events[0].elapsed_time(inflight.events[1])})
+            if inflight.moe_counts is not None:
+                before, after = (c.numpy() for c in inflight.moe_counts)
+                attrs["experts_read"], attrs["expert_rows"] = (
+                    int(n) for n in after - before)
+            tr.close(span, wall_ms=wall_ms, **attrs)
         return wall_ms
 
     def execute(self, batch: ScheduledBatch) -> float:

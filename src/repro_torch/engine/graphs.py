@@ -22,6 +22,7 @@ from repro_torch.kernels.chunked_prefill_attention import (
 )
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.fused_swiglu import fused_swiglu
+from repro_torch.kernels.grouped_swiglu import grouped_down, grouped_gate_up
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention, paged_decode_attention_fused,
 )
@@ -38,7 +39,7 @@ COUNTED = (paged_decode_attention, paged_prefill_attention,
            paged_decode_attention_fused, paged_prefill_attention_fused,
            swap_gather_pages, swap_scatter_pages, swap_gather_pages_q8,
            swap_scatter_pages_q8, chunked_prefill_attention,
-           decode_attention, fused_swiglu)
+           decode_attention, fused_swiglu, grouped_gate_up, grouped_down)
 
 
 def launch_counts() -> Dict[str, int]:

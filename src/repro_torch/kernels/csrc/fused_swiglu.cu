@@ -40,11 +40,10 @@
 // f32 FMA on CUDA cores (4 x 4 per thread), and a second kernel summing the
 // ceil(F / 128) partials in block order.  Every division is IEEE (no fast
 // math).
-#include <cuda.h>   // CUtensorMap (the encoder is looked up at run time)
-
 #include <algorithm>
 
 #include "hopper_common.cuh"
+#include "tensor_map.cuh"      // the TMA maps (encoder looked up at run time)
 #include "paged_attention_common.cuh"   // dtype codes and conversions
 
 namespace swiglu {
@@ -376,45 +375,6 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled, looked up in the driver at run time (no link
-// against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &status) != cudaSuccess ||
-        status != cudaDriverEntryPointSuccess) {
-      return static_cast<EncodeTiled>(nullptr);
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A row-major bf16 matrix (rows, cols) read in boxes of box_rows rows x 64
-// columns (128 bytes), 128-byte swizzled, zeros outside the matrix.
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-              int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int BN, bool GATED, int STAGES>
 cudaError_t launch_gemm(const CUtensorMap& a, const CUtensorMap& b0,
                         const CUtensorMap& b1, __nv_bfloat16* out, int M,
@@ -455,6 +415,7 @@ cudaError_t launch_bf16(const void* x, const void* wg, const void* wu,
                         const void* wd, __nv_bfloat16* h, void* out, int M,
                         int D, int F, cudaStream_t stream) {
   CUtensorMap x_map, wg_map, wu_map, h_map, wd_map;
+  using hopper::make_map;
   if (!make_map(&x_map, x, M, D, kBM) || !make_map(&wg_map, wg, D, F, kBK) ||
       !make_map(&wu_map, wu, D, F, kBK) || !make_map(&h_map, h, M, F, kBM) ||
       !make_map(&wd_map, wd, F, D, kBK)) {

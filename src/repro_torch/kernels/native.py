@@ -30,7 +30,8 @@ KERNELS = ("paged_decode_attention", "paged_prefill_attention",
            "paged_decode_attention_fused", "paged_prefill_attention_fused",
            "swap_gather_pages", "swap_scatter_pages",
            "swap_gather_pages_q8", "swap_scatter_pages_q8",
-           "chunked_prefill_attention", "decode_attention", "fused_swiglu")
+           "chunked_prefill_attention", "decode_attention", "fused_swiglu",
+           "grouped_gate_up", "grouped_down")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -44,11 +44,19 @@ def _block_init(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
     return p
 
 
-def _block_ffn(p, x, cfg: ModelConfig):
+def _block_ffn(p, x, cfg: ModelConfig, lane_mask=None, moe_counts=None):
+    """The FFN block.  ``lane_mask`` (B, C): an engine round's real lanes,
+    whose MoE runs on the routed rows only (``L.moe_round``, adding to
+    ``moe_counts``); without it the whole-sequence entry points and
+    training run the batched expert GEMMs, which have a gradient."""
     h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if "moe" in p:
-        moe_fn = L.moe_ffn_scatter if cfg.moe_impl == "scatter" else L.moe_ffn
-        out = moe_fn(p["moe"], h, cfg)
+        if lane_mask is not None:
+            out = L.moe_round(p["moe"], h, cfg, lane_mask, moe_counts)
+        elif cfg.moe_impl == "scatter":
+            out = L.moe_ffn_scatter(p["moe"], h, cfg)
+        else:
+            out = L.moe_ffn(p["moe"], h, cfg)
         if "ffn" in p:  # arctic's dense residual, a parallel branch
             out = out + L.ffn(p["ffn"], h)
     else:
@@ -271,7 +279,7 @@ class TransformerLM:
 
     # -- the engine round ----------------------------------------------------
     def _round(self, params, tokens, positions, write_mask, chunk_lens,
-               attend):
+               attend, moe_counts=None):
         """The layers of one engine round around a layout's KV write and
         attention: ``attend(l, q, k_new, v_new)`` stores layer ``l``'s new
         K/V and returns its attention output.  Masked lanes (``write_mask``
@@ -280,8 +288,9 @@ class TransformerLM:
         storage -- a shared sink page, or a slot's sink row -- would reach
         other rows' masked-position 0*V products or the NaN guard's scan.
         Zeroing also makes duplicate sink indices harmless: every write to
-        that row carries the same value.  Returns the logits at each slot's
-        last chunk position."""
+        that row carries the same value.  ``moe_counts`` (2,) int64, if
+        given, gains each MoE layer's (experts read, expert rows).  Returns
+        the logits at each slot's last chunk position."""
         cfg = self.cfg
         keep = write_mask[:, :, None, None]
         x = params["embed"][tokens.long()]
@@ -295,13 +304,14 @@ class TransformerLM:
             k_new = torch.where(keep, k_new, 0.0)
             v_new = torch.where(keep, v_new, 0.0)
             y = x + L.attn_output(lp["attn"], attend(l, q, k_new, v_new), cfg)
-            x = _block_ffn(lp, y, cfg)
+            x = _block_ffn(lp, y, cfg, write_mask, moe_counts)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         last = (chunk_lens - 1).clamp(min=0).long()
         x_last = x[torch.arange(x.shape[0], device=x.device), last]  # (B, D)
         return self._unembed(params, x_last)
 
-    def chunked_step(self, params, tokens, cache, lens, chunk_lens):
+    def chunked_step(self, params, tokens, cache, lens, chunk_lens,
+                     moe_counts=None):
         """One chunked-prefill round against the dense per-slot KV cache
         (Sarathi semantics, the engine's ``paged_kv=False`` A/B layout).
 
@@ -311,6 +321,7 @@ class TransformerLM:
         this round (decode 1, prefill its chunk, idle 0).  The cache is
         updated IN PLACE (JAX returned a new one and donated the old
         buffer); returns the logits at each slot's last chunk position.
+        ``moe_counts``: the MoE counter (``_round``).
 
         Every bucket, C == 1 included, attends through
         ``prefill_chunk_attention`` over ``cache[l][:, :-1]`` -- the
@@ -338,12 +349,12 @@ class TransformerLM:
                                                 kv_lens, lens)
 
         return self._round(params, tokens, positions, write_mask, chunk_lens,
-                           attend)
+                           attend, moe_counts)
 
     def chunked_step_paged(self, params, tokens, kv_pages, lens, chunk_lens,
                            block_tables, *, pages_per_tile: int = 1,
                            kv_layout: str = "split",
-                           buffering_depth: int = 1):
+                           buffering_depth: int = 1, moe_counts=None):
         """One chunked-prefill round against a paged KV cache (vLLM layout).
 
         tokens (B, C) right-padded; kv_pages {"k", "v"} each
@@ -361,7 +372,7 @@ class TransformerLM:
         old buffer); returns the logits at each slot's last chunk position.
         A bucket of C == 1 runs the paged decode kernel, C > 1 the paged
         prefill kernel (decode slots of a mixed round included), each in the
-        pool's layout.
+        pool's layout.  ``moe_counts``: the MoE counter (``_round``).
         """
         assert kv_layout in ("split", "fused"), kv_layout
         cfg = self.cfg
@@ -396,7 +407,7 @@ class TransformerLM:
                 buffering_depth)
 
         return self._round(params, tokens, positions, write_mask, chunk_lens,
-                           attend)
+                           attend, moe_counts)
 
     @staticmethod
     def _attend_split(ck, cv, q, k_new, v_new, write_pos, block_tables,

@@ -170,9 +170,10 @@ def _ms(ns) -> float:
 
 def summary(spans: List[Span]) -> List[str]:
     """The operator's summary of a traced serve, one line each: self ms per
-    round of each nesting span, device ms per round by chunk bucket, queue
-    wait p50 / p99, the LPRS rounds over their target and the predictor's
-    median absolute error."""
+    round of each nesting span, device ms per round by chunk bucket, the
+    experts read and expert rows computed per round by bucket (a model with
+    experts), queue wait p50 / p99, the LPRS rounds over their target and
+    the predictor's median absolute error."""
     closed = [s for s in spans if s.t1 and s.name != QUEUE]
     dispatch = {s.attrs["round"]: s for s in closed if s.name == "engine.dispatch"}
     n = max(len(dispatch), 1)
@@ -193,6 +194,16 @@ def summary(spans: List[Span]) -> List[str]:
     lines.append("device ms per round by bucket: " + (", ".join(
         f"C={C} {np.mean(v):.3f} ({len(v)} rounds)" for C, v in sorted(by_bucket.items()))
         or "not measured (no CUDA events: the CPU path)"))
+    moe: Dict[int, List[tuple]] = {}
+    for r, d in drains.items():
+        if "expert_rows" in d.attrs and r in dispatch:
+            moe.setdefault(dispatch[r].attrs["C"], []).append(
+                (d.attrs["experts_read"], d.attrs["expert_rows"]))
+    if moe:
+        lines.append("MoE per round by bucket (summed over layers): " + ", ".join(
+            f"C={C} {np.mean([e for e, _ in v]):.1f} experts read, "
+            f"{np.mean([n for _, n in v]):.1f} expert rows ({len(v)} rounds)"
+            for C, v in sorted(moe.items())))
 
     end = max((max(s.t0, s.t1) for s in spans), default=0)
     waits = [_ms((s.t1 or end) - s.t0) for s in spans

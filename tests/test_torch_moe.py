@@ -50,6 +50,7 @@ from repro_torch.engine.engine import EngineConfig, TorchEngine, serve
 from repro_torch.engine.workload import (
     WorkloadSpec, attach_prompt_tokens, sharegpt_like,
 )
+from repro_torch.kernels import grouped_swiglu as GK
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import layers as L
 from repro_torch.models.model import build_model
@@ -412,3 +413,367 @@ def test_engine_without_a_card_raises(monkeypatch, arch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         TorchEngine(tiny_config(arch))
+
+
+# -- the engine round's MoE on routed rows only (L.moe_round) ------------------
+GROUPED_SETTINGS = {
+    # (capacity factor, n_experts or None, lane mask density): dropless with
+    # a mask; capacity-bound, every lane; 64 = E / K over 128 experts
+    "cf8-masked": (8.0, None, 0.5),
+    "cf1.25-all": (1.25, None, 1.0),
+    "e128-cf64": (64.0, 128, 0.5),
+}
+
+
+def _grouped_cfgs(setting, dtype="float32"):
+    cf, n_experts, _ = GROUPED_SETTINGS[setting]
+    out = []
+    for cfg in _cfgs("arctic-480b", dtype, impl="scatter", capacity_factor=cf):
+        if n_experts:
+            cfg = cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                                    n_experts=n_experts))
+        out.append(cfg)
+    return out
+
+
+def _lane_mask(rng, B, S, density):
+    mask = rng.random((B, S)) < density
+    mask[0, 0] = True
+    return mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("setting", sorted(GROUPED_SETTINGS))
+def test_grouped_round_matches_jax_scatter(setting, dtype):
+    """``moe_round`` (its plain path) against ``repro``'s
+    ``moe_ffn_scatter``: dropless with a lane mask, the real lanes within
+    the module's tolerance and the masked lanes with no expert row (zero
+    output); at 1.25 every lane takes capacity, so every lane matches."""
+    jcfg, tcfg = _grouped_cfgs(setting, dtype)
+    jp, tp = _moe_params(jcfg, tcfg)
+    rng = np.random.default_rng(4)
+    B, S = 4, 8
+    x = _inputs(rng, B, S, jcfg.d_model, nan=False)
+    want = np.asarray(jax.jit(JL.moe_ffn_scatter, static_argnums=2)(
+        jp, jnp.asarray(x, jnp.dtype(dtype)), jcfg), np.float32)
+    mask = _lane_mask(rng, B, S, GROUPED_SETTINGS[setting][2])
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    counts = torch.zeros(2, dtype=torch.long)
+    got = L.moe_round(tp, tx, tcfg, torch.from_numpy(mask),
+                      counts).float().numpy()
+    rows = int(counts[1])
+    if GROUPED_SETTINGS[setting][0] >= tcfg.moe.n_experts / tcfg.moe.top_k:
+        _close(got[mask], want[mask], dtype)
+        assert (got[~mask] == 0).all()
+        assert rows == mask.sum() * tcfg.moe.top_k
+    else:
+        _close(got, want, dtype)
+        assert rows < B * S * tcfg.moe.top_k       # some choices dropped
+
+
+def _capacity_walk(top_idx, E, C, order):
+    """The reference's capacity walk, one (token, choice) at a time, per
+    group: each pair's slot in its expert, -1 where the expert is full.
+    ``token``: token-major over the flattened (token, choice) axis;
+    ``choice``: choice 0 of every token first, the kept counts carried
+    into choice 1 (``repro``'s one-hot dispatch)."""
+    idx = top_idx.numpy()
+    G, T, K = idx.shape
+    slot = np.full(idx.shape, -1, np.int64)
+    for g in range(G):
+        n = np.zeros(E, np.int64)
+        pairs = ([(t, j) for t in range(T) for j in range(K)]
+                 if order == "token" else
+                 [(t, j) for j in range(K) for t in range(T)])
+        for t, j in pairs:
+            e = idx[g, t, j]
+            if n[e] < C:
+                slot[g, t, j] = n[e]
+                n[e] += 1
+    return torch.from_numpy(slot)
+
+
+@pytest.mark.parametrize("order", ["token", "choice"])
+@pytest.mark.parametrize("cf", [8.0, 1.25])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_expert_layout_against_capacity_rows(shape, cf, order):
+    """The sort-based capacity rank keeps the reference's capacity walk's
+    set at its slots, and ``capacity_rows`` puts each kept pair at its
+    expert's slot; the layout sorts the kept rows by expert, stable in
+    (token, choice) order, with counts, offsets and a tile table that cover
+    each row once, tiles of one expert of at most ``bn`` rows, each naming
+    its expert's first tile and tile count."""
+    jcfg, tcfg = _cfgs("arctic-480b", capacity_factor=cf)
+    _, tp = _moe_params(jcfg, tcfg)
+    B, S, gs = SHAPES[shape]
+    x = torch.from_numpy(_inputs(np.random.default_rng(5), B, S,
+                                 tcfg.d_model))
+    m = tcfg.moe
+    xg = L.moe_groups(x, gs)
+    G, t, _ = xg.shape
+    _, top_idx = L.moe_route(tp, xg, m.top_k)
+    C = L.moe_capacity(t, m.n_experts, m.top_k, cf)
+    rank = L.capacity_rank(top_idx, order)
+    want = _capacity_walk(top_idx, m.n_experts, C, order)
+    kept = rank < C
+    assert torch.equal(kept, want >= 0)
+    assert torch.equal(rank[kept], want[kept])
+    dest = L.capacity_rows(top_idx, m.n_experts, C, order)
+    g = torch.arange(G).view(G, 1, 1)
+    assert torch.equal(dest, torch.where(
+        kept, top_idx * (G * C) + g * C + want, m.n_experts * G * C))
+    for bn in (2, 16):
+        lay = GK.expert_layout(top_idx.reshape(G * t, m.top_k),
+                               kept.reshape(G * t, m.top_k), m.n_experts, bn)
+        flat_e = top_idx.reshape(-1)[kept.reshape(-1)]
+        assert torch.equal(lay.counts, torch.bincount(flat_e,
+                                                      minlength=m.n_experts))
+        n = int(lay.counts.sum())
+        row = lay.row.reshape(-1)[kept.reshape(-1)]
+        assert sorted(row.tolist()) == list(range(n))
+        # sorted by expert, and within an expert in (token, choice) order
+        order_of = torch.empty(n, dtype=torch.long)
+        order_of[row] = torch.arange(n)
+        e_of_row = flat_e[order_of]
+        assert bool((e_of_row[1:] >= e_of_row[:-1]).all())
+        same = e_of_row[1:] == e_of_row[:-1]
+        assert bool((order_of[1:][same] > order_of[:-1][same]).all())
+        tok = torch.arange(G * t).repeat_interleave(m.top_k)[kept.reshape(-1)]
+        assert torch.equal(lay.tok[row].long(), tok)
+        tiles, n_tiles = lay.tiles.long(), int(lay.n_tiles)
+        assert n_tiles == int(((lay.counts + bn - 1) // bn).sum())
+        assert (tiles[n_tiles:, 2] == 0).all() and (tiles[:n_tiles, 2] > 0).all()
+        assert tiles.shape[0] == GK.max_tiles(G * t * m.top_k, m.n_experts, bn)
+        cover = torch.zeros(n, dtype=torch.long)
+        for j, (e, r0, k, first, per) in enumerate(tiles[:n_tiles].tolist()):
+            assert k <= bn and (e_of_row[r0:r0 + k] == e).all()
+            cover[r0:r0 + k] += 1
+            assert (tiles[first:first + per, 0] == e).all() and first <= j < first + per
+            assert per == -(-int(lay.counts[e]) // bn)
+        assert (cover == 1).all()
+        assert (tiles[n_tiles:] == 0).all()
+
+
+@pytest.mark.parametrize("bn", [16, GK.ROW_TILE])
+def test_expert_with_no_rows_gets_no_tile(bn):
+    """Experts no kept row reaches -- unrouted, or routed only from masked
+    lanes -- hold no tile, and a round with every lane masked has none."""
+    E, T, K = 8, 12, 2
+    expert = torch.tensor([[1, 3]] * 6 + [[3, 6]] * 6)
+    kept = torch.ones((T, K), dtype=torch.bool)
+    kept[6:] = False                          # expert 6's only choices
+    lay = GK.expert_layout(expert, kept, E, bn)
+    live = lay.tiles[: int(lay.n_tiles)]
+    assert sorted(live[:, 0].tolist()) == [1, 3]
+    assert lay.counts.tolist() == [0, 6, 0, 6, 0, 0, 0, 0]
+    none = GK.expert_layout(expert, torch.zeros_like(kept), E, bn)
+    assert int(none.n_tiles) == 0 and (none.tiles[:, 2] == 0).all()
+
+
+@pytest.mark.parametrize("cf", [8.0, 1.25])
+def test_nan_idle_lane_reaches_no_real_lane(cf):
+    """An idle lane holding NaN (the plain attention's softmax over no
+    key): dropless it enters no expert and its expert output is 0; at 1.25
+    it takes capacity as in the reference and is NaN in its own row only.
+    Every real lane equals the output with that lane finite."""
+    jcfg, tcfg = _cfgs("arctic-480b", capacity_factor=cf)
+    _, tp = _moe_params(jcfg, tcfg)
+    rng = np.random.default_rng(6)
+    x = _inputs(rng, 4, 8, tcfg.d_model, nan=False)
+    mask = np.ones((4, 8), bool)
+    mask[1, 5:] = mask[3, 2:] = False
+    x_nan = x.copy()
+    x_nan[~mask] = np.nan
+    lanes = torch.from_numpy(mask)
+    got = L.moe_round(tp, torch.from_numpy(x_nan), tcfg, lanes).numpy()
+    if cf == 8.0:
+        # the masked lanes take no capacity: any finite values there agree
+        want = L.moe_round(tp, torch.from_numpy(x), tcfg, lanes).numpy()
+        assert (got[~mask] == 0).all()
+        np.testing.assert_array_equal(got[mask], want[mask])
+    else:
+        want = L.moe_ffn_scatter(tp, torch.from_numpy(x_nan), tcfg).numpy()
+        assert np.isnan(got[~mask]).all()
+        assert np.isfinite(got[mask]).all()
+        _close(got, want, "float32")
+
+
+@pytest.mark.parametrize("layout", ["split", "fused"])
+@pytest.mark.parametrize("cf", [8.0, 1.25])
+def test_paged_round_with_idle_slots_matches_jax(arctic, layout, cf):
+    """Three ``chunked_step_paged`` rounds of tiny arctic with idle slots
+    (a mixed round, a pure-decode round, a wider mixed round) against
+    ``repro``'s on the same weights: the logits of every slot with work
+    within 1e-4, the MoE on the port's grouped path."""
+    jparams, tparams = arctic
+    jcfg, tcfg = _cfgs("arctic-480b", impl="scatter", capacity_factor=cf)
+    schedule = [(16, (16, 0, 9, 0)), (1, (1, 0, 1, 0)), (32, (1, 0, 20, 7))]
+    ps, max_pages, B = 8, 8, 4
+    rng = np.random.default_rng(7)
+    n_phys = B * max_pages + 3
+    sink = n_phys - 1
+    hd = jcfg.resolved_head_dim
+    split = (jcfg.n_layers, n_phys, ps, jcfg.n_kv_heads, hd)
+    if layout == "split":
+        jpool = {n: jnp.zeros(split, jnp.float32) for n in ("k", "v")}
+        tpool = {n: torch.zeros(split) for n in ("k", "v")}
+    else:
+        fused = split[:3] + (2 * jcfg.n_kv_heads, hd)
+        jpool, tpool = {"kv": jnp.zeros(fused, jnp.float32)}, {
+            "kv": torch.zeros(fused)}
+    jstep = jax.jit(jax_build_model(jcfg).impl.chunked_step_paged,
+                    static_argnames="kv_layout")
+    timpl = build_model(tcfg).impl
+    ids = rng.permutation(sink)[: B * max_pages].reshape(B, max_pages)
+    lens = np.zeros(B, np.int32)
+    for C, chunks in schedule:
+        chunk_lens = np.asarray(chunks, np.int32)
+        tokens = np.zeros((B, C), np.int32)
+        for b, c in enumerate(chunks):
+            tokens[b, :c] = rng.integers(1, jcfg.vocab_size, c)
+        tables = np.full((B, max_pages), sink, np.int32)
+        for b in range(B):
+            n = -(-int(lens[b] + chunk_lens[b]) // ps)
+            tables[b, :n] = ids[b, :n]
+        want, jpool = jstep(jparams, jnp.asarray(tokens), jpool,
+                            jnp.asarray(lens), jnp.asarray(chunk_lens),
+                            jnp.asarray(tables), kv_layout=layout)
+        got = timpl.chunked_step_paged(
+            tparams, torch.from_numpy(tokens), tpool, torch.from_numpy(lens),
+            torch.from_numpy(chunk_lens), torch.from_numpy(tables),
+            kv_layout=layout)
+        live = chunk_lens > 0
+        w = np.asarray(want, np.float32)[live]
+        np.testing.assert_allclose(got.numpy()[live], w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max())
+        lens = lens + chunk_lens
+
+
+@pytest.mark.parametrize("cf", [64.0, 1.25])
+def test_moe_counter_on_a_known_routing(cf):
+    """The counter adds (experts holding a row, rows) a call: a router
+    whose logits are each row's first E features routes row ``i`` to
+    experts (2i mod E, 2i + 1 mod E); dropless only the real lanes count,
+    at capacity 1 each expert keeps its first choice."""
+    E, K, D = 8, 2, 16
+    cfg = tiny_config("arctic-480b").with_(d_model=D, moe=dataclasses.replace(
+        tiny_config("arctic-480b").moe, n_experts=E, top_k=K,
+        capacity_factor=cf))
+    p = L.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32,
+                   "cpu")
+    p["router"] = torch.eye(D, E) * 50.0
+    T = 6
+    x = torch.zeros((1, T, D))
+    for i in range(T):
+        x[0, i, (2 * i) % E] = 2.0
+        x[0, i, (2 * i + 1) % E] = 1.0
+    lanes = torch.tensor([[True] * 4 + [False] * 2])
+    counts = torch.zeros(2, dtype=torch.long)
+    L.moe_round(p, x, cfg, lanes, counts)
+    got = counts.tolist()
+    if cf == 64.0:
+        # lanes 0-3 reach experts 0-7 once each
+        assert got == [8, 8]
+    else:
+        # capacity ceil(6 * 2 / 8 * 1.25) = 2 < 6: every lane takes it;
+        # lanes 4, 5 reach experts 0-3 again, each holding two rows
+        assert L.moe_capacity(T, E, K, cf) == 2
+        assert got == [8, 12]
+
+
+def test_whole_sequence_and_training_keep_the_batched_gemms(monkeypatch,
+                                                             arctic):
+    """Prefill (and so training's forward) runs the batched expert GEMMs,
+    which have a gradient; an engine round runs the grouped path and never
+    those GEMMs."""
+    _, tparams = arctic
+    _, tcfg = _cfgs("arctic-480b", impl="scatter")
+    calls = []
+    expert_ffn = L.expert_ffn
+    monkeypatch.setattr(L, "expert_ffn",
+                        lambda p, buf: calls.append(1) or expert_ffn(p, buf))
+    impl = build_model(tcfg).impl
+    tokens = torch.randint(1, tcfg.vocab_size, (2, 8))
+    impl.train_hidden(tparams, {"tokens": tokens})
+    assert len(calls) == tcfg.n_layers
+    calls.clear()
+    B, C, ps = 2, 4, 8
+    shape = (tcfg.n_layers, 9, ps, tcfg.n_kv_heads, tcfg.resolved_head_dim)
+    pool = {n: torch.zeros(shape) for n in ("k", "v")}
+    tables = torch.arange(8, dtype=torch.int32).view(B, 4)
+    counts = torch.zeros(2, dtype=torch.long)
+    impl.chunked_step_paged(tparams, tokens[:, :C], pool,
+                            torch.zeros(B, dtype=torch.int32),
+                            torch.tensor([C, 2], dtype=torch.int32), tables,
+                            moe_counts=counts)
+    assert not calls
+    assert int(counts[1]) == (C + 2) * tcfg.moe.top_k * tcfg.n_layers
+
+
+# (lanes, capacity factor) of tiny arctic (4 experts top-2): capacity 40 at
+# 1.25, within GROUPED_MAX_CAPACITY (64); 160, above it; dropless at 8.0
+ROUTE_SIDES = {"grouped-cf1.25": (64, 1.25), "batched-cf1.25": (256, 1.25),
+               "grouped-dropless": (256, 8.0)}
+
+
+@pytest.mark.parametrize("side", sorted(ROUTE_SIDES))
+def test_round_takes_batched_gemms_only_above_the_capacity(monkeypatch, side):
+    """A capacity-bound round whose experts may hold more than
+    ``GROUPED_MAX_CAPACITY`` rows runs the reference's layer (the batched
+    GEMMs over (E, C) buffers: equal to ``moe_ffn_scatter`` bit for bit,
+    every expert and slot counted); at or below it, and dropless at any
+    size, the grouped kernels (their plain versions here) and no batched
+    GEMM, matching ``moe_ffn_scatter`` wherever a lane is real."""
+    t, cf = ROUTE_SIDES[side]
+    jcfg, tcfg = _cfgs("arctic-480b", impl="scatter", capacity_factor=cf)
+    _, tp = _moe_params(jcfg, tcfg)
+    m = tcfg.moe
+    C = L.moe_capacity(t, m.n_experts, m.top_k, cf)
+    batched = side.startswith("batched")
+    assert (t > C > L.GROUPED_MAX_CAPACITY) == batched
+    calls = {"expert_ffn": 0, "grouped": 0}
+    expert_ffn, gate_up = L.expert_ffn, GK.grouped_gate_up
+
+    def counted_ffn(p, buf):
+        calls["expert_ffn"] += 1
+        return expert_ffn(p, buf)
+
+    def counted_gate_up(*args):
+        calls["grouped"] += 1
+        return gate_up(*args)
+
+    monkeypatch.setattr(L, "expert_ffn", counted_ffn)
+    monkeypatch.setattr(GK, "grouped_gate_up", counted_gate_up)
+    x = torch.from_numpy(_inputs(np.random.default_rng(8), 4, t // 4,
+                                 tcfg.d_model, nan=False))
+    counts = torch.zeros(2, dtype=torch.long)
+    got = L.moe_round(tp, x, tcfg, torch.ones((4, t // 4), dtype=torch.bool),
+                      counts)
+    assert calls == {"expert_ffn": int(batched), "grouped": int(not batched)}
+    calls["expert_ffn"] = 0
+    want = L.moe_ffn_scatter(tp, x, tcfg)
+    if batched:
+        assert torch.equal(got, want)
+        assert counts.tolist() == [m.n_experts, m.n_experts * C]
+    else:
+        _close(got.numpy(), want.numpy(), "float32")
+        assert int(counts[1]) <= t * m.top_k
+
+
+def test_meta_round_is_the_reference_layer(monkeypatch):
+    """On the meta device (the dry-run's count of the reference's lowering)
+    the round's MoE is the reference's layer over every lane: the batched
+    expert GEMMs, no grouped kernel, the counter untouched."""
+    _, tcfg = _cfgs("arctic-480b", impl="scatter")
+    p = L.init_moe(None, tcfg, torch.float32, "meta")
+    calls = []
+    expert_ffn = L.expert_ffn
+    monkeypatch.setattr(L, "expert_ffn",
+                        lambda p, buf: calls.append(buf.shape) or expert_ffn(p, buf))
+    x = torch.empty((4, 8, tcfg.d_model), device="meta")
+    lanes = torch.ones((4, 8), dtype=torch.bool, device="meta")
+    out = L.moe_round(p, x, tcfg, lanes)
+    assert out.shape == x.shape and out.device.type == "meta"
+    assert calls == [torch.Size([tcfg.moe.n_experts, L.moe_capacity(
+        32, tcfg.moe.n_experts, tcfg.moe.top_k, tcfg.moe.capacity_factor),
+        tcfg.d_model])]

@@ -239,3 +239,36 @@ def test_serve_cli_writes_chrome_trace_spans(tmp_path, capsys, profiled):
         for e in replays:
             i = np.searchsorted(ops, e["ts"])
             assert i < len(ops) and ops[i] <= e["ts"] + e["dur"], e
+
+
+def test_moe_counts_per_round_add_up():
+    """A traced serve of tiny arctic (dropless at its capacity factor 8.0):
+    each drain span carries the round's experts read and expert rows, the
+    rows are the round's real tokens x top-k x layers, and the summary
+    reports both by bucket; a model without experts carries neither."""
+    cfg = tiny_config("arctic-480b").with_(param_dtype="float32")
+    eng = TorchEngine(cfg, EngineConfig(n_slots=4, max_context=256,
+                                        chunk_buckets=(1, 16, 32, 64)),
+                      device="cpu")
+    tracer = tracing.Tracer()
+    _serve(eng, tracer)
+    spans = tracer.spans()
+    dispatch = {s.attrs["round"]: s.attrs for s in spans
+                if s.name == "engine.dispatch"}
+    drains = [s.attrs for s in spans if s.name == "engine.drain"]
+    assert drains and all("expert_rows" in d for d in drains)
+    per = cfg.moe.top_k * cfg.n_layers
+    for s in spans:
+        if s.name == "engine.drain":
+            a = dispatch[s.attrs["round"]]
+            tokens = a["prefill_tokens"] + a["decode_tokens"]
+            assert s.attrs["expert_rows"] == tokens * per
+            assert 0 < s.attrs["experts_read"] <= cfg.moe.n_experts * cfg.n_layers
+    assert any(line.startswith("MoE per round by bucket")
+               for line in tracing.summary(spans))
+
+
+def test_dense_model_has_no_moe_counts(traced):
+    spans = traced[0]
+    assert not any("expert_rows" in s.attrs for s in spans)
+    assert not any(line.startswith("MoE") for line in tracing.summary(spans))
