@@ -4,13 +4,23 @@
 files are found from those names alone:
 - ``bench/configs/<config>.json``: the model's published keys (as its
   ``config.json`` spells them), the serving stack it runs under
-  (``serving``) and the plain reference that checks it (``reference``: a
+  (``serving``), the model module that maps those keys onto the program
+  (``model``: a module of ``bench/models/``, ``transformer`` when the key
+  is absent) and the plain reference that checks it (``reference``: a
   module of ``bench/reference/``);
+- ``bench/models/<model>.py``: the program's ``ModelConfig``, the weights'
+  draws and parameter dict, the operations and the attention kernel's
+  launches of one form of model (``bench/models/transformer.py`` lists
+  what a module provides);
 - ``bench/traffic/<traffic>.json``: the parameters of the one generator
   (``traffic_gen.py``);
 - ``bench/cells/<cell>.json``: what belongs to the pair, the offered rate;
 - ``bench/metrics/<metric>.py``: one reader per per-layer metric.
 A new cell, model, mix or metric is a new file: nothing here changes.
+A model of a form the benchmark has not seen adds its configuration, its
+model module and its reference; ``weights.py``, ``flops/model.py`` and
+the readers ask the module, and ``bench/tests`` runs such a model made of
+added files only (``tiny-qkvbias``).
 """
 from __future__ import annotations
 
@@ -18,7 +28,7 @@ import importlib.util
 import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -82,41 +92,17 @@ def reference_module(config: Dict, root: Path = ROOT):
                        f"bench_reference_{config['reference']}")
 
 
-def model_config(config: Dict):
-    """The program's ``ModelConfig`` for a configuration file: every size
-    from the published keys, the MoE dispatch from ``serving``.  The
-    program sizes a dense residual beside the experts by ``d_ff``; Arctic's
-    is ``hidden_size`` wide (``ArcticMLP(is_residual_mlp=True)`` in
-    Snowflake's modeling code), the experts ``intermediate_size``."""
-    from repro_torch.configs.base import ModelConfig, MoEConfig
+def model_name(config: Dict) -> str:
+    return config.get("model", "transformer")
 
-    serving = config["serving"]
-    moe: Optional[MoEConfig] = None
-    if config.get("num_local_experts"):
-        moe = MoEConfig(
-            n_experts=int(config["num_local_experts"]),
-            top_k=int(config["num_experts_per_tok"]),
-            d_ff=int(config["intermediate_size"]),
-            capacity_factor=float(serving["moe_capacity_factor"]),
-            dense_residual=bool(config.get("parallel_attn_mlp_res", False)),
-            every=int(config.get("moe_layer_frequency", 1)))
-    head_dim = config.get("head_dim") or (
-        config["hidden_size"] // config["num_attention_heads"])
-    return ModelConfig(
-        name=config["name"], family="moe" if moe else "dense",
-        n_layers=int(config["num_hidden_layers"]),
-        d_model=int(config["hidden_size"]),
-        n_heads=int(config["num_attention_heads"]),
-        n_kv_heads=int(config["num_key_value_heads"]),
-        d_ff=int(config["hidden_size"] if moe and moe.dense_residual
-                 else config["intermediate_size"]),
-        vocab_size=int(config["vocab_size"]),
-        head_dim=int(head_dim),
-        sliding_window=int(config.get("sliding_window") or 0),
-        rope_theta=float(config["rope_theta"]),
-        norm_eps=float(config["rms_norm_eps"]),
-        tie_embeddings=bool(config.get("tie_word_embeddings", False)),
-        moe=moe,
-        moe_impl=serving.get("moe_impl", "scatter"),
-        param_dtype=config["torch_dtype"], compute_dtype=config["torch_dtype"],
-        max_seq_len=int(config["max_position_embeddings"]))
+
+def model_module(config: Dict, root: Path = ROOT):
+    name = model_name(config)
+    return load_module(root / "bench" / "models" / f"{name}.py",
+                       f"bench_model_{name.replace('.', '_').replace('-', '_')}")
+
+
+def model_config(config: Dict, root: Path = ROOT):
+    """The program's ``ModelConfig`` for a configuration file, as its
+    model module maps the published keys."""
+    return model_module(config, root).program_config(config)

@@ -6,10 +6,18 @@ KV cache that brings ``n`` tokens this round (a decode has n = 1).  Its
 i-th new token (0-based) sits at position ``cached + i`` and attends to
 ``cached + i + 1`` keys.  Only real tokens count: the padding of a round's
 ``n_slots x C`` positions is work the model does not need.
+
+What a model computes is its model module's (``bench/models/``, named by
+the configuration's ``"model"``): ``Yardstick`` finds it and asks it.  The
+module-level ``active_params``, ``step_flops`` and ``attention_launches``
+are those of the benchmark's own root.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from pathlib import Path
+from typing import Dict, Iterable, List, Tuple
+
+from bench import cell as cells
 
 BF16 = 2          # bytes
 
@@ -21,48 +29,18 @@ def dims(config: Dict):
     return D, Hq, Hkv, hd
 
 
-def active_params(config: Dict) -> int:
-    """Parameters one token multiplies, outside the embedding and the
-    unembedding: per layer the attention projections, then the dense FFN,
-    or the router, ``num_experts_per_tok`` experts and the dense residual
-    (``hidden_size`` wide, as Arctic's)."""
-    D, Hq, Hkv, hd = dims(config)
-    F = config["intermediate_size"]
-    attn = D * Hq * hd + 2 * D * Hkv * hd + Hq * hd * D
-    if config.get("num_local_experts"):
-        ffn = (D * config["num_local_experts"]
-               + config["num_experts_per_tok"] * 3 * D * F)
-        if config.get("parallel_attn_mlp_res"):
-            ffn += 3 * D * D
-    else:
-        ffn = 3 * D * F
-    return config["num_hidden_layers"] * (attn + ffn)
-
-
-def _keys(rows: Iterable[Tuple[int, int]]) -> int:
-    """Sum over every new token of the keys it attends to."""
+def keys(rows: Iterable[Tuple[int, int]]) -> int:
+    """Sum over every new token of the keys it attends to, causally."""
     return sum(n * c + n * (n + 1) // 2 for c, n in rows)
 
 
-def step_flops(config: Dict, rows, n_sampled: int) -> float:
-    """Useful model operations of one round: 2 x active parameters per real
-    token, causal attention 4 * L * Hq * hd per query and key, and the
-    unembedding of the rows that sample."""
-    D, Hq, _, hd = dims(config)
-    L, V = config["num_hidden_layers"], config["vocab_size"]
-    tokens = sum(n for _, n in rows)
-    return (2.0 * active_params(config) * tokens
-            + 4.0 * L * Hq * hd * _keys(rows)
-            + 2.0 * D * V * n_sampled)
-
-
 def attention_cost(config: Dict, rows) -> Tuple[float, float]:
-    """(operations, bytes) of ONE layer's attention call over ``rows``:
-    each valid K and V row read once, each query read once and each output
-    written once, in bf16; QK^T and PV at 2 * hd operations per query-key
-    pair and head."""
+    """(operations, bytes) of ONE causal attention launch over ``rows`` at
+    the configuration's heads: each valid K and V row read once, each query
+    read once and each output written once, in bf16; QK^T and PV at 2 * hd
+    operations per query-key pair and head."""
     _, Hq, Hkv, hd = dims(config)
-    flops = 4.0 * Hq * hd * _keys(rows)
+    flops = 4.0 * Hq * hd * keys(rows)
     kv = sum(c + n for c, n in rows) * 2 * Hkv * hd * BF16
     qo = sum(n for _, n in rows) * 2 * Hq * hd * BF16
     return flops, float(kv + qo)
@@ -72,3 +50,40 @@ def bound_s(flops: float, nbytes: float, peak_flops: float,
             peak_bytes: float) -> float:
     """The least time the card could take: the larger of the two terms."""
     return max(flops / peak_flops, nbytes / peak_bytes)
+
+
+class Yardstick:
+    """The arithmetic of the configurations under one root, each asked of
+    its model module (loaded once per name)."""
+
+    bound_s = staticmethod(bound_s)
+
+    def __init__(self, root: Path = cells.ROOT):
+        self.root = root
+        self._models: Dict[str, object] = {}
+
+    def model(self, config: Dict):
+        name = cells.model_name(config)
+        if name not in self._models:
+            self._models[name] = cells.model_module(config, self.root)
+        return self._models[name]
+
+    def active_params(self, config: Dict) -> int:
+        """Parameters one token multiplies, outside the embedding and the
+        unembedding."""
+        return self.model(config).active_params(config)
+
+    def step_flops(self, config: Dict, rows, n_sampled: int) -> float:
+        """Useful model operations of one round over its real rows."""
+        return self.model(config).step_flops(config, rows, n_sampled)
+
+    def attention_launches(self, config: Dict, rows) -> List[Tuple[float, float]]:
+        """(operations, bytes) of each launch of the attention kernel in a
+        round over ``rows``."""
+        return self.model(config).attention_launches(config, rows)
+
+
+_ROOT = Yardstick()
+active_params = _ROOT.active_params
+step_flops = _ROOT.step_flops
+attention_launches = _ROOT.attention_launches

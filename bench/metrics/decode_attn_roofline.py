@@ -2,8 +2,10 @@
 the sum over its launches of the least time the card could take (the
 larger of operations / 989 TFLOP/s and bytes / 3.35 TB/s, from each
 pure-decode round's real rows: every valid K and V byte once, q and the
-output once; ``bench/flops/model.py``), over the kernel's traced device
-time.  A C == 1 round launches it once per layer."""
+output once), over the kernel's traced device time.  A C == 1 round
+launches it as many times, and with such bounds, as the model module's
+``attention_launches`` gives (``bench/flops/model.py``): once per layer
+over every row for the transformer form."""
 LAYER = "kernels"
 UNIT = "%"
 MOVES = "itl_p95_ms"
@@ -18,13 +20,13 @@ def read(ctx):
     t, n = ctx.trace_read.kernel_s(ctx.trace, lambda name: KERNEL in name)
     if not rounds or n == 0 or t <= 0:
         return None
-    L = ctx.config["num_hidden_layers"]
-    expected = L * len(rounds)
+    launches = [ctx.flops.attention_launches(ctx.config, r.rows) for r in rounds]
+    expected = sum(len(x) for x in launches)
     if n != expected:
         ctx.log(f"{__name__}: {n} launches traced, {expected} expected")
-    # the bound of an average launch times the launches traced: the
-    # profiler's record can miss a few launches of the rounds recorded
-    bound = sum(ctx.flops.bound_s(*ctx.flops.attention_cost(ctx.config, r.rows),
-                                  ctx.peaks.BF16_FLOPS, ctx.peaks.HBM_BYTES_PER_S)
-                for r in rounds) * L / expected * n
+    # the bound of an average launch times the launches traced: a launch
+    # or two of the rounds recorded can fall outside the traced window
+    bound = sum(ctx.flops.bound_s(f, b, ctx.peaks.BF16_FLOPS,
+                                  ctx.peaks.HBM_BYTES_PER_S)
+                for x in launches for f, b in x) / expected * n
     return 100.0 * bound / t

@@ -91,13 +91,15 @@ class Stack:
 
         self.cell, self.device = cell, torch.device(device)
         cfg, sv, tr = cell.config, cell.config["serving"], cell.traffic
-        self.mcfg = cells.model_config(cfg)
+        self.model = cells.model_module(cfg, cell.root)
+        self.mcfg = self.model.program_config(cfg)
         marks = [("start", time.perf_counter())]
         if self.device.type == "cuda":
             from repro_torch.kernels import native
             native.build_all()
         marks.append(("kernels built or loaded", time.perf_counter()))
-        self.stacks = weights.make_stacks(self.mcfg, seed, self.device)
+        self.draws = self.model.draws(cfg, self.mcfg)
+        self.stacks = weights.make_stacks(self.draws, seed, self.device)
         self.sync()
         marks.append(("weights drawn", time.perf_counter()))
         self.ecfg = EngineConfig(
@@ -106,7 +108,7 @@ class Stack:
             kv_layout=sv["kv_layout"], pipelined=True,
             preemption_mode=sv["preemption_mode"])
         self.engine = TorchEngine(self.mcfg, self.ecfg,
-                                  params=weights.as_params(self.mcfg, self.stacks),
+                                  params=self.model.as_params(self.mcfg, self.stacks),
                                   device=self.device)
         bs = 16
         self.pool = pool_for_model(
@@ -190,7 +192,7 @@ def _power_limit() -> str:
 
 def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
              device: str = "cuda", tamper=None, log=print,
-             schedule_seed=None) -> dict:
+             schedule_seed=None, dump=None) -> dict:
     """One run: set-up, lead-in, window, checks.  Returns the result's
     fields.  ``tamper(stack)``, for the fault tests, plants a fault in the
     program after set-up; ``schedule_seed`` serves a held-out schedule."""
@@ -274,6 +276,15 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
                              for k in units}
         log(f"samples: {endtoend.sample_counts(_served(reqs), t0, t1)}",
             file=sys.stderr)
+        itl = endtoend.itl_samples(_served(reqs), t0, t1)
+        log("itl ms: " + " ".join(
+            f"p{q} {endtoend.percentile(itl, q) * 1e3:.4f}"
+            for q in (50, 75, 90, 93, 95, 97, 99)), file=sys.stderr)
+        if dump:
+            with open(dump, "w") as f:
+                json.dump({"t0": t0, "t1": t1,
+                           "reqs": [[r.arrival_time, r.max_new_tokens,
+                                     list(r.token_times)] for r in reqs]}, f)
     else:
         tr = trace_read.from_profiler(prof)
         busy = trace_read.busy_s(tr)
@@ -296,7 +307,8 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
             config=cell.config, n_slots=stack.ecfg.n_slots, trace=tr,
             window_s=tr.window_s, busy_s=busy, rounds=traced.rounds,
             off=segment("off", off), traced=segment("traced", traced),
-            flops=flops_model, peaks=peaks, trace_read=trace_read,
+            flops=flops_model.Yardstick(cell.root), peaks=peaks,
+            trace_read=trace_read,
             log=lambda *a: log(*a, file=sys.stderr))
         metrics = {}
         for m in cell.per_layer:
@@ -396,7 +408,7 @@ def readings(cell: cells.Cell, seeds, seconds: float, control: bool,
     lead = float(cell.traffic["lead_in_s"])
     rate = float(cell.params["rate_per_s"])
     for seed in seeds:
-        weights.make_stacks(stack.mcfg, seed, stack.device, out=stack.stacks)
+        weights.make_stacks(stack.draws, seed, stack.device, out=stack.stacks)
         sched = stack.scheduler()
         server = stack.server(sched)
         reqs, prompts = stack.requests(rate, seconds, seed)
@@ -426,6 +438,9 @@ def main(argv=None) -> int:
     ap.add_argument("--schedule-seed", type=int, default=None,
                     help="a held-out schedule: due times and sizes drawn from "
                          "this seed, not the traffic file's base_seed")
+    ap.add_argument("--dump", default=None,
+                    help="with --trace 0: write each request's due time, "
+                         "length and token stamps to this JSON file")
     args = ap.parse_args(argv)
 
     cell = cells.find_cell(args.workload)
@@ -446,7 +461,7 @@ def main(argv=None) -> int:
                  args.seconds, args.control)
         return 0
     result = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                      schedule_seed=args.schedule_seed)
+                      schedule_seed=args.schedule_seed, dump=args.dump)
     print(result_line(result), flush=True)
     for line in compare.describe(result["checks"]):
         print(line, file=sys.stderr)

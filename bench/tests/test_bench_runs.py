@@ -3,7 +3,8 @@ card skipped): a sound run comes out correct; with the timed path broken
 underneath, ``correct`` comes out false, once for each fault a served cell
 can have; the float8 control fails the limit the sound run meets; the
 reference agrees with the program's path in float32; a cell made only of
-added files runs."""
+added files runs, its model module and reference too, and a model module
+that maps a key wrongly is caught."""
 import json
 
 import pytest
@@ -119,20 +120,23 @@ def test_float8_control_fails_the_limit_the_program_meets(tiny_root):
     assert ch["control_max_logit_gap"]["value"] > limit
 
 
-@pytest.mark.parametrize("name", ["tiny-dense.tiny", "tiny-moe.tiny"])
+@pytest.mark.parametrize("name", ["tiny-dense.tiny", "tiny-moe.tiny",
+                                  "tiny-qkvbias.tiny"])
 def test_reference_equals_the_program_in_float32(tmp_path, name, monkeypatch):
-    monkeypatch.setitem(conftest.TINY, "torch_dtype", "float32")
-    monkeypatch.setitem(conftest.TINY_MOE, "torch_dtype", "float32")
+    for cfg in conftest.TINY_CONFIGS.values():
+        monkeypatch.setitem(cfg, "torch_dtype", "float32")
     root = conftest.make_root(tmp_path)
     res = _run(root, name)
     assert res["checks"]["max_logit_gap"]["value"] < 1e-4, res["checks"]
     assert res["correct"]
 
 
-def test_a_cell_of_added_files_only_runs(tiny_root):
-    """The tiny cells, their configurations, their mix and a new metric
-    are files added beside the benchmark's; BENCHMARK.json only gains
-    entries, and no other file changes."""
+@pytest.mark.parametrize("name", ["tiny-moe.tiny", "tiny-qkvbias.tiny"])
+def test_a_cell_of_added_files_only_runs(tiny_root, name):
+    """The tiny cells, their configurations, their mix, a new metric, and
+    for ``tiny-qkvbias`` its model module and reference, are files added
+    beside the benchmark's; BENCHMARK.json only gains entries, and no other
+    file changes."""
     root = tiny_root
     for p in (conftest.ROOT / "bench").rglob("*"):
         if p.is_file() and "__pycache__" not in p.parts and ".cache" not in p.parts:
@@ -145,10 +149,29 @@ def test_a_cell_of_added_files_only_runs(tiny_root):
     bench["per_layer"].append({"name": "rounds_traced", "unit": "rounds",
                                "better": "higher", "source": "program_counter",
                                "layer": "engine round", "moves": "out_tok_s",
-                               "workloads": ["tiny-moe.tiny"]})
+                               "workloads": [name]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    res = _run(root, "tiny-moe.tiny", trace=True)
+    res = _run(root, name, trace=True)
     assert res["metrics"]["rounds_traced"]["value"] > 0
+
+
+def test_a_model_of_added_files_is_correct(tiny_root):
+    """``tiny-qkvbias``'s added model module and reference, in bfloat16."""
+    res = _run(tiny_root, "tiny-qkvbias.tiny")
+    assert res["correct"], res["checks"]
+
+
+def test_a_model_module_that_drops_a_key_is_caught(tiny_root):
+    """A model module whose ``program_config`` leaves out the biases: the
+    weights are drawn and the reference adds them, the program does not,
+    and ``correct`` comes out false through the added module."""
+    path = tiny_root / "bench/models/qkvbias.py"
+    src = path.read_text()
+    mapped = 'qkv_bias=bool(config["attention_bias"])'
+    assert src.count(mapped) == 1
+    path.write_text(src.replace(mapped, "qkv_bias=False"))
+    res = _run(tiny_root, "tiny-qkvbias.tiny")
+    assert not res["correct"], res["checks"]
 
 
 def test_metric_files_declare_what_benchmark_json_says():

@@ -120,12 +120,12 @@ def test_arctic_dense_residual_is_hidden_size_wide():
     """Snowflake's ArcticMLP(is_residual_mlp=True) is hidden_size wide; the
     experts are intermediate_size wide: the program, the weights and the
     flops all take those widths."""
-    from bench import weights
     config = cells.load_json(cells.ROOT / "bench/configs/arctic-1l.json")
     mcfg = cells.model_config(config)
     D, F = config["hidden_size"], config["intermediate_size"]
     assert (mcfg.d_ff, mcfg.moe.d_ff) == (D, F)
-    shapes = {n: s for n, s, _, _ in weights._shapes(mcfg)}
+    draws = cells.model_module(config).draws(config, mcfg)
+    shapes = {n: s for n, s, _, _ in draws}
     assert shapes["w_gate"] == (1, D, D) and shapes["e_gate"] == (1, 128, D, F)
     attn = D * 56 * 128 * 2 + 2 * D * 8 * 128
     assert fm.active_params(config) == attn + D * 128 + 2 * 3 * D * F + 3 * D * D
