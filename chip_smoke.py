@@ -297,6 +297,17 @@ Phases, each of which raises (exit code != 0) on failure:
    called, warm-up included), a traced serve's span summary (experts read
    and rows per round by bucket), the replays BITWISE equal to an eager
    engine's step at every bucket.  Run between phases 22 and 23.
+28. the windowed attention kernels and ``k-exaone-8l``'s layers, run
+   after phase 27.  The paged decode and prefill kernels with a window of
+   128 at the cell's heads (64 over 8, hd 128), split and fused, bf16 and
+   f32, over up to 512 and 2,048 keys, against the windowed plain versions
+   under phase 3's tolerances (fused bitwise equal to split); a NaN key
+   inside a decode row's window reaches it, one below every window of a
+   row changes no output.  Then the cell's form as its model module builds
+   it (8 layers LLLG LLLG, every width as published) with 8 experts held,
+   served through the graphs as phase 20 serves: 6 windowed and 2 causal
+   launches a round by the counters (zeroed just before the serve) and by
+   the kernels' names in ``torch.profiler``'s trace.
 The second-to-last line is a JSON object listing every kernel with its
 numbers; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -479,15 +490,25 @@ def time_kernel(timer, kernel, split, fused):
     return (turns[0] + turns[3]) / 2, turns
 
 def decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, ps, max_pages, n_pages,
-                dtype, timed, fused=False):
+                dtype, timed, fused=False, window=0):
     """The decode kernel against its plain version; ``fused``: the fused
     kernel on ``fuse_pages(k, v)``, which must also equal the split kernel
-    on ``(k, v)`` bitwise."""
+    on ``(k, v)`` bitwise.  ``window`` (untimed): the windowed
+    instantiation against the windowed plain version, the NaN key inside
+    the window, and a NaN key below it (``below_window_check``)."""
+    import functools
+
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention, paged_decode_attention_fused,
         paged_decode_attention_fused_plain, paged_decode_attention_plain)
     import torch.nn.functional as F
+
+    assert not (timed and window), "the timed yardsticks are causal"
+    split, split_plain, fused_kernel, fused_plain = (
+        functools.partial(fn, window=window) for fn in (
+            paged_decode_attention, paged_decode_attention_plain,
+            paged_decode_attention_fused, paged_decode_attention_fused_plain))
 
     dev = "cuda"
     k, v, tables = paged_inputs(gen, B=B, Hq=Hq, Hkv=Hkv, hd=hd, ps=ps,
@@ -501,11 +522,9 @@ def decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, ps, max_pages, n_pages,
     split_args = (q, k, v, tables, kv_lens)
     if fused:
         args = (q, ref.fuse_pages(k, v), tables, kv_lens)
-        kernel, plain = (paged_decode_attention_fused,
-                         paged_decode_attention_fused_plain)
+        kernel, plain = fused_kernel, fused_plain
     else:
-        args, kernel, plain = (split_args, paged_decode_attention,
-                               paged_decode_attention_plain)
+        args, kernel, plain = split_args, split, split_plain
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -514,12 +533,17 @@ def decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, ps, max_pages, n_pages,
         raise AssertionError("decode kernel: a row with no valid key is not 0")
     err = max_err(got, want, live)
     if fused:
-        require(same_bits(got, paged_decode_attention(*split_args)),
+        require(same_bits(got, split(*split_args)),
                 "fused decode kernel differs from the split kernel")
-    # a NaN key in the first split of the longest sequence (row 1)
-    pos = min(100, max_ctx - 1)
+    # a NaN key in the first split of the longest sequence (row 1), within
+    # its window where it has one
+    pos = max_ctx - min(window, 100) if window else min(100, max_ctx - 1)
     page = (int(tables[1, pos // ps]), pos % ps)
-    poison_check(torch, kernel, args, (1,) if fused else (1, 2), 1, page)
+    key_args = (1,) if fused else (1, 2)
+    poison_check(torch, kernel, args, key_args, 1, page)
+    if window:
+        below_window_check(torch, kernel, args, key_args,
+                           (int(tables[1, 0]), 0))
     if not timed:
         return {"max_abs_err": err}
     # library yardstick: SDPA over the gathered dense K/V
@@ -530,7 +554,7 @@ def decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, ps, max_pages, n_pages,
     mask = mask[:, None, None, :]
     q4 = q[:, :, None, :]
     ms, turns = time_kernel(timer, lambda: kernel(*args),
-                            lambda: paged_decode_attention(*split_args), fused)
+                            lambda: split(*split_args), fused)
     plain_ms = timer(lambda: plain(*args))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q4, kd, vd, attn_mask=mask, enable_gqa=Hq != Hkv)
@@ -553,15 +577,25 @@ def decode_case(torch, timer, gen, *, B, Hq, Hkv, hd, ps, max_pages, n_pages,
 
 
 def prefill_case(torch, timer, gen, *, B, Sq, Hq, Hkv, hd, ps, max_pages,
-                 n_pages, dtype, timed, fused=False):
+                 n_pages, dtype, timed, fused=False, window=0):
     """The prefill kernel against its plain version; ``fused``: the fused
     kernel on ``fuse_pages(k, v)``, which must also equal the split kernel
-    on ``(k, v)`` bitwise."""
+    on ``(k, v)`` bitwise.  ``window`` (untimed): the windowed
+    instantiation against the windowed plain version, and a NaN key below
+    every window of row 2 (``below_window_check``)."""
+    import functools
+
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_prefill_attention import (
         paged_prefill_attention, paged_prefill_attention_fused,
         paged_prefill_attention_fused_plain, paged_prefill_attention_plain)
     import torch.nn.functional as F
+
+    assert not (timed and window), "the timed yardsticks are causal"
+    split, split_plain, fused_kernel, fused_plain = (
+        functools.partial(fn, window=window) for fn in (
+            paged_prefill_attention, paged_prefill_attention_plain,
+            paged_prefill_attention_fused, paged_prefill_attention_fused_plain))
 
     dev = "cuda"
     k, v, tables = paged_inputs(gen, B=B, Hq=Hq, Hkv=Hkv, hd=hd, ps=ps,
@@ -573,21 +607,25 @@ def prefill_case(torch, timer, gen, *, B, Sq, Hq, Hkv, hd, ps, max_pages,
     split_args = (q, k, v, tables, kv_lens, q_offset)
     if fused:
         args = (q, ref.fuse_pages(k, v), tables, kv_lens, q_offset)
-        kernel, plain = (paged_prefill_attention_fused,
-                         paged_prefill_attention_fused_plain)
+        kernel, plain = fused_kernel, fused_plain
     else:
-        args, kernel, plain = (split_args, paged_prefill_attention,
-                               paged_prefill_attention_plain)
+        args, kernel, plain = split_args, split, split_plain
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
-    live = kv_lens > 0                     # key 0 is visible to every row
+    live = kv_lens > 0            # each row sees its own key at least
     if not bool((got[~live] == 0).all()):
         raise AssertionError("prefill kernel: a row with no valid key is not 0")
     err = max_err(got, want, live)
     if fused:
-        require(same_bits(got, paged_prefill_attention(*split_args)),
+        require(same_bits(got, split(*split_args)),
                 "fused prefill kernel differs from the split kernel")
+    if window:
+        # row 2's chunk starts at max_ctx - Sq, so key 0 lies below every
+        # one of its rows' windows while max_ctx - Sq >= window
+        require(max_ctx - Sq >= window, "key 0 of row 2 is in a window")
+        below_window_check(torch, kernel, args, (1,) if fused else (1, 2),
+                           (int(tables[2, 0]), 0))
     if not timed:
         return {"max_abs_err": err}
     kd = ref.gather_pages(k, tables).transpose(1, 2)           # (B, Hkv, S, hd)
@@ -600,7 +638,7 @@ def prefill_case(torch, timer, gen, *, B, Sq, Hq, Hkv, hd, ps, max_pages,
     mask = mask[:, None]                                       # (B, 1, Sq, S)
     qt = q.transpose(1, 2)
     ms, turns = time_kernel(timer, lambda: kernel(*args),
-                            lambda: paged_prefill_attention(*split_args), fused)
+                            lambda: split(*split_args), fused)
     plain_ms = timer(lambda: plain(*args))
     lib_ms = timer(lambda: F.scaled_dot_product_attention(
         qt, kd, vd, attn_mask=mask))
@@ -1178,20 +1216,16 @@ def check_outputs(res, reqs, vocab_size):
     return toks
 
 
-def kernel_fns():
-    """Every kernel wrapper, by name: each counts its launches, replayed
-    ones included."""
-    from repro_torch.engine.graphs import COUNTED
-    return {fn.__name__: fn for fn in COUNTED}
-
-
 def zero_launches() -> None:
-    for fn in kernel_fns().values():
-        fn.launches = 0
+    from repro_torch.engine import graphs
+    graphs.add_launches(graphs.launch_counts(), -1)
 
 
 def read_launches():
-    return {n: fn.launches for n, fn in kernel_fns().items()}
+    """Every kernel's launches by name, and the paged attention kernels'
+    windowed ones as ``"<name>.windowed"``."""
+    from repro_torch.engine import graphs
+    return graphs.launch_counts()
 
 
 def note_tokens(reqs, outputs, baseline) -> None:
@@ -1576,6 +1610,22 @@ def poison_check(torch, kernel, args, key_args, b, where):
     others = [i for i in range(got.shape[0]) if i != b]
     require(same_bits(got[others], clean[others]),
             "a NaN key changed another sequence's output")
+
+
+def below_window_check(torch, kernel, args, key_args, where):
+    """NaN at a key (K and V, every head; ``where`` as for
+    ``poison_check``) below every window of its sequence must change no
+    output at all: a windowed kernel neither reads nor weighs it (a NaN
+    value read and weighted 0 would still give NaN)."""
+    clean = kernel(*args)
+    args = list(args)
+    for i in key_args:
+        args[i] = args[i].clone()
+        args[i][where] = float("nan")
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    require(same_bits(got, clean),
+            "a NaN key below the window changed the output")
 
 
 def dense_prefill_case(torch, timer, gen, *, B, Sq, Hq, Hkv, hd, S, dtype,
@@ -3181,7 +3231,7 @@ def grouped_graph_check(torch, p, cfg):
     from repro_torch.models import layers as L
 
     gen = torch.Generator(device="cuda").manual_seed(27)
-    counter = torch.zeros(2, dtype=torch.long, device="cuda")
+    counter = torch.zeros(3, dtype=torch.long, device="cuda")
     stream = torch.cuda.Stream()
     real = dict(GROUPED_CASES)
     seen = {}
@@ -3210,7 +3260,7 @@ def grouped_graph_check(torch, p, cfg):
                 f"C={C}: the replay moved the counter by "
                 f"{(counter - before).tolist()}, the eager call by "
                 f"{eager.tolist()}")
-        seen[C] = tuple(eager.tolist())
+        seen[C] = tuple(eager.tolist()[:2])
         del graph, got
     torch.cuda.empty_cache()
     return seen
@@ -3317,6 +3367,120 @@ def grouped_expert_phase(torch, timed=True):
     del g, g_pool, e, e_pool, p
     torch.cuda.empty_cache()
     return table
+
+
+# -- phase 28: the windowed kernels and K-EXAONE's layer kinds, served --------
+EXAONE_CONFIG = ROOT / "bench" / "configs" / "k-exaone-8l.json"
+EXAONE_HELD = 8         # of the cell's 64 held experts; every width published
+SPAN_KERNELS = ("decode_splitk_kernel", "paged_prefill")
+
+
+def windowed_kernel_cases(torch, window):
+    """Phase 28 (a): both paged kernels' windowed instantiations at
+    ``k-exaone-8l``'s heads (64 over 8, hd 128, page 16), split and fused,
+    against the windowed plain versions under phase 3's tolerances: decode
+    over up to 512 keys (B = 16) and up to 2,048 (B = 4, several splits
+    merged), prefill at Sq 16 and 128; bf16, and f32 at 512 keys."""
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    timer = Timer(torch)
+    heads = dict(Hq=64, Hkv=8, hd=128, ps=16, n_pages=2049)
+    shapes = (("512 keys", dict(heads, B=16, max_pages=33)),
+              ("2048 keys", dict(heads, B=4, max_pages=129)))
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst = 0.0
+    for fused in (False, True):
+        layout = "fused" if fused else "split"
+        for dtype, (keys, shape) in ((bf16, shapes[0]), (bf16, shapes[1]),
+                                     (f32, shapes[0])):
+            name = f"{layout} window {window} {keys} {str(dtype)[6:]}"
+            r = decode_case(torch, timer, gen, dtype=dtype, timed=False,
+                            fused=fused, window=window, **shape)
+            errs = [r["max_abs_err"]]
+            for Sq in (16, 128):
+                r = prefill_case(torch, timer, gen, Sq=Sq, dtype=dtype,
+                                 timed=False, fused=fused, window=window,
+                                 **shape)
+                errs.append(r["max_abs_err"])
+            worst = max(worst, *errs)
+            log(f"  {name}: err decode {errs[0]:.3e}, prefill Sq=16 "
+                f"{errs[1]:.3e}, Sq=128 {errs[2]:.3e}")
+    log("  every windowed output within phase 3's tolerance of its plain "
+        "version, fused bitwise equal to split; a NaN key in the window "
+        "reaches its decode row, one below every window changes no output")
+    return worst
+
+
+def traced_spans(prof):
+    """The paged attention kernels the card ran, counted by the span of
+    their template argument in the kernel's name."""
+    seen = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if (str(e.device_type()).endswith("CUDA")
+                and any(k in name for k in SPAN_KERNELS)):
+            kind = next((k for k in ("SlidingWindow", "Causal") if k in name),
+                        name)
+            seen[kind] = seen.get(kind, 0) + 1
+    return seen
+
+
+def exaone_phase(torch):
+    """Phase 28: (a) ``windowed_kernel_cases`` at the cell's window of 128;
+    (b) ``k-exaone-8l``'s form as its model module builds it (8 layers
+    LLLG LLLG: the dense lead layer, 6 sliding RoPE layers, 2 global NoPE
+    layers, QK-norm, post-norm, the sigmoid router over 128 experts and the
+    shared expert) with EXAONE_HELD experts held, seeded bf16 weights,
+    served through ``TorchEngine``'s graphs on the split layout by
+    ``gated_serve`` under ``torch.profiler``: the launch counters, zeroed
+    just before the serve, must read 6 windowed and 2 causal launches a
+    round (the decode kernel at C = 1, the prefill kernel above), and the
+    card's trace as many ``paged::SlidingWindow`` and ``paged::Causal``
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench import cell as cells, weights
+
+    t_phase = time.perf_counter()
+    config = dict(cells.load_json(EXAONE_CONFIG), num_experts=EXAONE_HELD)
+    model = cells.model_module(config)
+    cfg = model.program_config(config)
+    window = max(cfg.window(l) for l in range(cfg.n_layers))
+    err = windowed_kernel_cases(torch, window)
+    torch.cuda.empty_cache()
+    stacks = weights.make_stacks(model.draws(config, cfg), 28, "cuda")
+    n_win = sum(1 for l in range(cfg.n_layers) if cfg.window(l))
+    n_full = cfg.n_layers - n_win
+    log(f"  {cfg.name}: {cfg.n_layers} layers, {n_win} with a window of "
+        f"{window} and RoPE, {n_full} global without; {cfg.moe.held} of "
+        f"{cfg.moe.n_experts} experts held, top-{cfg.moe.top_k}, a shared "
+        f"expert; weights {param_bytes(stacks) / 1e9:.2f} GB")
+    engine, kv_pool, args = build_at_width(
+        torch, cfg, params=model.as_params(cfg, stacks))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res, _, toks, launches, _ = gated_serve(torch, engine, kv_pool, args)
+    log_served(res, toks, engine, launches)
+    rounds = {"paged_decode_attention": engine.bucket_rounds.get(1, 0),
+              "paged_prefill_attention": sum(
+                  n for c, n in engine.bucket_rounds.items() if c > 1)}
+    for name, n in rounds.items():
+        got = (launches[name + ".windowed"],
+               launches[name] - launches[name + ".windowed"])
+        require(got == (n_win * n, n_full * n),
+                f"{name}: {got[0]} windowed and {got[1]} causal launches "
+                f"over {n} rounds, not {n_win} and {n_full} a round")
+    total = sum(rounds.values())
+    traced = traced_spans(prof)
+    require(traced == {"SlidingWindow": n_win * total,
+                       "Causal": n_full * total},
+            f"the trace's paged attention kernels {traced} over {total} "
+            f"rounds, not {n_win} SlidingWindow and {n_full} Causal a round")
+    log(f"  {n_win} windowed and {n_full} causal launches a round, counted "
+        f"and traced ({traced}); peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated; "
+        f"phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    del engine, kv_pool, stacks, prof
+    torch.cuda.empty_cache()
+    return err
 
 
 # -- phase 23: the whole-prompt prefill and decode -----------------------------
@@ -4654,6 +4818,10 @@ def main() -> int:
         "128 experts, dropless), the cell served")
     grouped_kern = grouped_expert_phase(torch)
     torch.cuda.empty_cache()
+
+    log("== the windowed kernels and k-exaone-8l's layer kinds, served "
+        f"({EXAONE_HELD} experts held)")
+    exaone_phase(torch)
 
     log("== the whole-prompt prefill and decode: qwen1.5-0.5b against the "
         f"chunked kernel path, flash against naive, mixtral-8x7b's ring "

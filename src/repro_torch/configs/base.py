@@ -21,6 +21,38 @@ class MoEConfig:
     dense_residual: bool = False   # arctic: dense FFN in parallel with MoE
     every: int = 1                 # MoE FFN every `every` layers (1 = all layers)
 
+    # The router and the experts held here, as every MoEConfig has them:
+    # softmax over all ``n_experts``, each held here, renormalised top-k,
+    # no shared expert.  A sigmoid router (DeepSeek-V3's) chooses on the
+    # scores plus a selection bias per expert and renormalises.  Class
+    # attributes, not fields (the configurations that existed before them
+    # keep their fields); ``RoutedMoEConfig`` makes them fields.
+    scoring = "softmax"            # "softmax" | "sigmoid"
+    routed_scale = 1.0             # the routed experts' sum scaled by this
+    n_shared = 0                   # shared experts, on every token
+    shared_d_ff = 0                # their hidden width, all together
+    first_held = 0                 # the experts held here: first_held ..
+    n_held = 0                     # first_held + n_held - 1 (0: all)
+
+    @property
+    def held(self) -> int:
+        """Experts held here: their weights, the rest routed to but absent."""
+        return self.n_held or self.n_experts
+
+
+@dataclass(frozen=True)
+class RoutedMoEConfig(MoEConfig):
+    """A MoE whose router and expert share are set (DeepSeek-V3's router;
+    a chip's share of the experts under expert parallelism).  The router
+    scores all ``n_experts``; the layer computes the choices that land on
+    experts ``first_held .. first_held + held - 1`` and drops the rest."""
+    scoring: str = "softmax"
+    routed_scale: float = 1.0
+    n_shared: int = 0
+    shared_d_ff: int = 0
+    first_held: int = 0
+    n_held: int = 0
+
 
 @dataclass(frozen=True)
 class SSMConfig:
@@ -88,6 +120,37 @@ class ModelConfig:
 
     notes: str = ""
 
+    # Layer kinds, as every ModelConfig has them: pre-norm, no QK-norm,
+    # RoPE and the window ``sliding_window`` on every layer, experts per
+    # ``moe.every``.  Class attributes, not fields; ``LayeredModelConfig``
+    # sets them layer by layer.
+    layer_windows = ()
+    layer_rope = ()
+    layer_sparse = ()
+    qk_norm = False
+    post_norm = False
+
+    def window(self, l: int) -> int:
+        """Layer ``l``'s attention window (0: full causal attention)."""
+        return self.layer_windows[l] if self.layer_windows else self.sliding_window
+
+    def rope(self, l: int) -> bool:
+        """Whether layer ``l`` rotates q and k (False: no positional
+        encoding)."""
+        return self.layer_rope[l] if self.layer_rope else True
+
+    def sparse(self, l: int) -> bool:
+        """Whether layer ``l``'s FFN is the experts (else dense)."""
+        if self.layer_sparse:
+            return self.layer_sparse[l]
+        return self.moe is not None and l % self.moe.every == self.moe.every - 1
+
+    @property
+    def uniform_layers(self) -> bool:
+        """Every layer of one kind: what the whole-sequence entry points
+        and the dense round compute."""
+        return True
+
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
@@ -111,8 +174,9 @@ class ModelConfig:
                 n += self._ssm_params()
             else:
                 n += attn
-            if self.moe is not None and (li % self.moe.every == (self.moe.every - 1)):
-                n += self.moe.n_experts * 3 * d * self.moe.d_ff + d * self.moe.n_experts
+            if self.sparse(li):
+                n += self.moe.held * 3 * d * self.moe.d_ff + d * self.moe.n_experts
+                n += 3 * d * self.moe.shared_d_ff
                 if self.moe.dense_residual:
                     n += dense_ffn
             elif self.d_ff:
@@ -132,11 +196,9 @@ class ModelConfig:
         if self.moe is None:
             return self.param_count()
         full = self.param_count()
-        per_layer_moe = self.moe.n_experts * 3 * self.d_model * self.moe.d_ff
+        per_layer_moe = self.moe.held * 3 * self.d_model * self.moe.d_ff
         active_moe = self.moe.top_k * 3 * self.d_model * self.moe.d_ff
-        n_moe_layers = sum(
-            1 for li in range(self.n_layers) if li % self.moe.every == (self.moe.every - 1)
-        )
+        n_moe_layers = sum(1 for li in range(self.n_layers) if self.sparse(li))
         return full - n_moe_layers * (per_layer_moe - active_moe)
 
     def _ssm_params(self) -> int:
@@ -164,6 +226,37 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class LayeredModelConfig(ModelConfig):
+    """A decoder whose layers differ in kind (EXAONE 4.0's and K-EXAONE's
+    ``layer_types``, ``sliding_windows``, ``mlp_layer_types``): each
+    layer's window (0: full), whether it applies RoPE (else no positional
+    encoding), whether its FFN is the experts; RMSNorm over the head
+    dimension on q and k before RoPE (``qk_norm``); and with ``post_norm``
+    each branch normed on its output, ``x + norm(attn(x))`` then ``x +
+    norm(ffn(x))``, with no norm on a branch's input.  An empty tuple means
+    what ``ModelConfig`` means."""
+    layer_windows: Tuple[int, ...] = ()
+    layer_rope: Tuple[bool, ...] = ()
+    layer_sparse: Tuple[bool, ...] = ()
+    qk_norm: bool = False
+    post_norm: bool = False
+
+    def __post_init__(self):
+        for name in ("layer_windows", "layer_rope", "layer_sparse"):
+            got = getattr(self, name)
+            if got and len(got) != self.n_layers:
+                raise ValueError(f"{name} has {len(got)} entries for "
+                                 f"{self.n_layers} layers")
+
+    @property
+    def uniform_layers(self) -> bool:
+        return (len({self.window(l) for l in range(self.n_layers)}) <= 1
+                and all(self.rope(l) for l in range(self.n_layers))
+                and len({self.sparse(l) for l in range(self.n_layers)}) <= 1
+                and not (self.qk_norm or self.post_norm))
 
 
 @dataclass(frozen=True)

@@ -203,8 +203,9 @@ class InflightRound:
     # CUDA events around the replay while a tracer is on: the round's
     # device ms, read at drain
     events: Optional[Tuple[object, object]] = None
-    # the MoE counter (experts read, expert rows) copied to the host before
-    # and after the replay while a tracer is on: the round's counts
+    # the MoE counter (experts read, expert rows, absent choices) copied to
+    # the host before and after the replay while a tracer is on: the
+    # round's counts
     moe_counts: Optional[Tuple[HostCopy, HostCopy]] = None
 
 
@@ -232,10 +233,11 @@ class TorchEngine:
         self.params = params
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed + 1)
-        # the rounds' cumulative (experts read, expert rows), added to on
-        # the device by every round (its graphs' too, so allocated before
-        # any capture); a tracer reads it around each replay
-        self._moe_counts = (torch.zeros(2, dtype=torch.long,
+        # the rounds' cumulative (experts read, expert rows, real lanes'
+        # choices of experts not held here), added to on the device by every
+        # round (its graphs' too, so allocated before any capture); a tracer
+        # reads it around each replay
+        self._moe_counts = (torch.zeros(3, dtype=torch.long,
                                         device=self.device)
                             if model_cfg.moe is not None else None)
         # the compiled round: one RoundGraph per chunk bucket, all in one
@@ -942,6 +944,7 @@ class TorchEngine:
         tokens, chunk_lens, use_last, sample_mask, sampled = self._stage(batch)
         C = tokens.shape[1]
         if tr.on:
+            keys = self._keys_read(batch)
             tr.close(part)
             part = tr.open("engine.upload")
         if self.cfg.paged_kv:
@@ -983,7 +986,8 @@ class TorchEngine:
         if tr.on:
             tr.close(part)
             tr.close(span, C=C, prefill_tokens=batch.prefill_tokens,
-                     decode_tokens=batch.decode_tokens, sampled=len(sampled))
+                     decode_tokens=batch.decode_tokens, sampled=len(sampled),
+                     **keys)
         return InflightRound(toks=toks, sampled=sampled, t_dispatch=t_dispatch,
                              batch=batch, events=events, moe_counts=moe_counts)
 
@@ -1029,10 +1033,34 @@ class TorchEngine:
                      {"device_ms": inflight.events[0].elapsed_time(inflight.events[1])})
             if inflight.moe_counts is not None:
                 before, after = (c.numpy() for c in inflight.moe_counts)
-                attrs["experts_read"], attrs["expert_rows"] = (
-                    int(n) for n in after - before)
+                (attrs["experts_read"], attrs["expert_rows"],
+                 attrs["absent_choices"]) = (int(n) for n in after - before)
             tr.close(span, wall_ms=wall_ms, **attrs)
         return wall_ms
+
+    def _keys_read(self, batch: ScheduledBatch) -> Dict[str, int]:
+        """The keys the round's attention reads, summed over the layers, by
+        kind: ``window_keys`` over the sliding-window layers, ``full_keys``
+        over the others; and ``window_context_keys``, what the
+        sliding-window layers would read without their windows.  A row with
+        ``c`` keys cached that brings ``n`` reads the ``c + n`` keys of its
+        context under full attention, and under a window ``W`` the ``min(c
+        + n, W + n - 1)`` that its queries' windows cover."""
+        rows = [(r.context_len - 1, 1) for r in batch.decode_reqs]
+        rows += [(r.prefill_done, int(c)) for r, c in batch.prefill_chunks]
+        mcfg = self.model_cfg
+        keys = {"window_keys": 0, "full_keys": 0, "window_context_keys": 0}
+        if mcfg.family == "ssm":
+            return keys
+        for l in range(0, mcfg.n_layers, mcfg.attn_every or 1):
+            W = mcfg.window(l)
+            if W:
+                keys["window_keys"] += sum(min(c + n, W + n - 1)
+                                           for c, n in rows)
+                keys["window_context_keys"] += sum(c + n for c, n in rows)
+            else:
+                keys["full_keys"] += sum(c + n for c, n in rows)
+        return keys
 
     def execute(self, batch: ScheduledBatch) -> float:
         """Synchronous round (``pipelined=False`` A/B path): dispatch and

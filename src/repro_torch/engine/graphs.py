@@ -9,6 +9,8 @@ raised where each calls its kernel), and a replay never runs that code.  So
 a capture records how far each count moved while the round was recorded,
 takes that back (a capture launches nothing), and every replay adds it
 again: a count reads the same whether the rounds ran eagerly or replayed.
+The paged attention wrappers also count their windowed launches
+(``fn.windowed_launches``), kept as ``"<name>.windowed"``.
 """
 from __future__ import annotations
 
@@ -42,13 +44,23 @@ COUNTED = (paged_decode_attention, paged_prefill_attention,
            decode_attention, fused_swiglu, grouped_gate_up, grouped_down)
 
 
+# the wrappers that count their windowed launches apart
+WINDOWED = (paged_decode_attention, paged_prefill_attention,
+            paged_decode_attention_fused, paged_prefill_attention_fused)
+
+
 def launch_counts() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in COUNTED}
+    counts = {fn.__name__: fn.launches for fn in COUNTED}
+    counts.update({fn.__name__ + ".windowed": fn.windowed_launches
+                   for fn in WINDOWED})
+    return counts
 
 
 def add_launches(deltas: Dict[str, int], sign: int = 1) -> None:
     for fn in COUNTED:
         fn.launches += sign * deltas.get(fn.__name__, 0)
+    for fn in WINDOWED:
+        fn.windowed_launches += sign * deltas.get(fn.__name__ + ".windowed", 0)
 
 
 class RoundGraph:

@@ -646,10 +646,14 @@ __device__ __forceinline__ void finish_split(uint8_t* smem, const Args& a,
 // and V rows of key 0's row) and rows(b, key0, n_keys, table_s): the
 // key-to-row function of keys [key0, n_keys), which may stage what it reads
 // (the block table's entries) in table_s, kSplitKeys + 1 ints of shared
-// memory, before the CTA's barrier.
-template <typename T, int HD, int ROWS, bool MMA, typename KV>
+// memory, before the CTA's barrier.  The splits start at the first key the
+// query (at kv_len - 1) sees, span.lo(kv_len - 1): key 0 (Causal), or the
+// window's first key (SlidingWindow), so keys below the window are neither
+// read nor counted, and a window of W keys takes ceil(W / kSplitKeys)
+// splits whatever the context.
+template <typename T, int HD, int ROWS, bool MMA, typename KV, typename Span>
 __global__ void __launch_bounds__(kThreads)
-    decode_splitk_kernel(const Args a, const KV kv) {
+    decode_splitk_kernel(const Args a, const KV kv, const Span span) {
   extern __shared__ __align__(128) uint8_t dec_smem[];
   __shared__ int table_s[kSplitKeys + 1];
   using S = Smem<T, HD, ROWS, MMA>;
@@ -660,7 +664,8 @@ __global__ void __launch_bounds__(kThreads)
                        (size_t)kv_head * a.group + rb * ROWS;
   T* out = static_cast<T*>(a.out) + head0 * HD;
   const int kv_len = kv.kv_len(b);
-  const int key0 = split * kSplitKeys;
+  const int key_lo = span.lo(kv_len - 1);
+  const int key0 = key_lo + split * kSplitKeys;
   if (key0 >= kv_len) {
     if (split == 0) {   // kv_len == 0: the rows store 0
       for (int i = threadIdx.x; i < rows * HD; i += kThreads) {
@@ -670,7 +675,7 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
   const int n_keys = min(kv_len, key0 + kSplitKeys);
-  const int n_live = (kv_len + kSplitKeys - 1) / kSplitKeys;
+  const int n_live = (kv_len - key_lo + kSplitKeys - 1) / kSplitKeys;
   const T* q = static_cast<const T*>(a.q) + head0 * HD;
   const auto row = kv.rows(b, key0, n_keys, table_s);
   __syncthreads();
@@ -686,58 +691,60 @@ __global__ void __launch_bounds__(kThreads)
                                b * gridDim.y + blockIdx.y);
 }
 
-template <typename T, int HD, int ROWS, bool MMA, typename KV>
+template <typename T, int HD, int ROWS, bool MMA, typename KV, typename Span>
 cudaError_t launch_rows(Args a, const KV& kv, int B, int n_kv_heads,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, Span span) {
   a.n_rb = (a.group + ROWS - 1) / ROWS;
   if ((long long)n_kv_heads * a.n_rb > 65535 || B > 65535) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid(a.n_splits, n_kv_heads * a.n_rb, B);
   constexpr int bytes = Smem<T, HD, ROWS, MMA>::kBytes;
-  auto kernel = decode_splitk_kernel<T, HD, ROWS, MMA, KV>;
+  auto kernel = decode_splitk_kernel<T, HD, ROWS, MMA, KV, Span>;
   const cudaError_t err = hopper::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, bytes, stream>>>(a, kv);
+  kernel<<<grid, kThreads, bytes, stream>>>(a, kv, span);
   return cudaGetLastError();
 }
 
 // The smallest ROWS (doubling from the first) that holds the group; the
 // largest takes any group in several row blocks.
-template <typename T, int HD, bool MMA, int ROWS, typename KV>
+template <typename T, int HD, bool MMA, int ROWS, typename KV, typename Span>
 cudaError_t pick_rows(const Args& a, const KV& kv, int B, int n_kv_heads,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, Span span) {
   if constexpr (ROWS == kMaxRows) {
-    return launch_rows<T, HD, ROWS, MMA>(a, kv, B, n_kv_heads, stream);
+    return launch_rows<T, HD, ROWS, MMA>(a, kv, B, n_kv_heads, stream, span);
   } else {
     if (a.group <= ROWS) {
-      return launch_rows<T, HD, ROWS, MMA>(a, kv, B, n_kv_heads, stream);
+      return launch_rows<T, HD, ROWS, MMA>(a, kv, B, n_kv_heads, stream,
+                                           span);
     }
-    return pick_rows<T, HD, MMA, ROWS * 2>(a, kv, B, n_kv_heads, stream);
+    return pick_rows<T, HD, MMA, ROWS * 2>(a, kv, B, n_kv_heads, stream,
+                                           span);
   }
 }
 
 // bf16 on the tensor cores, f32 on CUDA cores.
-template <typename T, int HD, typename KV>
+template <typename T, int HD, typename KV, typename Span>
 cudaError_t pick_path(const Args& a, const KV& kv, int B, int n_kv_heads,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, Span span) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return pick_rows<T, HD, true, 16>(a, kv, B, n_kv_heads, stream);
+    return pick_rows<T, HD, true, 16>(a, kv, B, n_kv_heads, stream, span);
   } else {
-    return pick_rows<T, HD, false, 8>(a, kv, B, n_kv_heads, stream);
+    return pick_rows<T, HD, false, 8>(a, kv, B, n_kv_heads, stream, span);
   }
 }
 
 // Launch the decode of `a` over `kv` (B sequences, n_kv_heads kv heads, head
-// dim hd, `capacity` keys per sequence at most); returns the launch's
-// cudaError_t.  Refuses only what the kernel cannot take: Hq % Hkv != 0, a
-// head dim other than 64 or 128, a split count other than
-// split_count(capacity), or a missing scratch or ticket buffer where a
-// sequence may take several splits.
-template <typename T, typename KV>
+// dim hd, `capacity` keys per sequence at most), each query over the keys
+// `span` lets it see; returns the launch's cudaError_t.  Refuses only what
+// the kernel cannot take: Hq % Hkv != 0, a head dim other than 64 or 128, a
+// split count other than split_count(capacity), or a missing scratch or
+// ticket buffer where a sequence may take several splits.
+template <typename T, typename KV, typename Span = Causal>
 cudaError_t launch_decode_splitk(Args a, const KV& kv, int B, int n_kv_heads,
                                  int hd, int capacity, float scale,
-                                 cudaStream_t stream) {
+                                 cudaStream_t stream, Span span = Span{}) {
   if (B < 0 || n_kv_heads <= 0 || a.n_q_heads % n_kv_heads != 0 ||
       capacity < 0 || a.n_splits != split_count(capacity) ||
       (a.n_splits > 1 && (a.part == nullptr || a.tickets == nullptr))) {
@@ -746,8 +753,8 @@ cudaError_t launch_decode_splitk(Args a, const KV& kv, int B, int n_kv_heads,
   if (B == 0 || a.n_q_heads == 0) return cudaSuccess;
   a.group = a.n_q_heads / n_kv_heads;
   a.scale_log2 = scale * kLog2e;
-  if (hd == 64) return pick_path<T, 64>(a, kv, B, n_kv_heads, stream);
-  if (hd == 128) return pick_path<T, 128>(a, kv, B, n_kv_heads, stream);
+  if (hd == 64) return pick_path<T, 64>(a, kv, B, n_kv_heads, stream, span);
+  if (hd == 128) return pick_path<T, 128>(a, kv, B, n_kv_heads, stream, span);
   return cudaErrorInvalidValue;
 }
 

@@ -40,6 +40,24 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16(x);             // round to nearest even, as torch's cast
 }
 
+// Which keys below its own position a query at position pos sees: every
+// one (Causal), or those of the last `window` positions, keys > pos -
+// window (SlidingWindow).  The attention kernels take it as a template
+// argument, so a windowed launch shows in a trace by its kernel's name;
+// Causal's lower bound is the constant 0, so its instantiation is the
+// kernel without a window.
+struct Causal {
+  static constexpr bool kWindowed = false;
+  __device__ __forceinline__ int lo(int) const { return 0; }
+};
+struct SlidingWindow {
+  static constexpr bool kWindowed = true;
+  int window;
+  __device__ __forceinline__ int lo(int pos) const {
+    return max(0, pos - window + 1);
+  }
+};
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

@@ -30,16 +30,17 @@
 
 // C entry point, bound from Python with ctypes.  `part` is the split
 // partials' f32 scratch and `tickets` a zeroed int32 buffer (both from the
-// wrapper, which sizes them for `n_splits`); returns the launch's
-// cudaError_t (0 = launched).
+// wrapper, which sizes them for `n_splits`); `window` > 0 runs the
+// SlidingWindow instantiation (the last `window` keys only), 0 the Causal
+// one.  Returns the launch's cudaError_t (0 = launched).
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* kv_lens, void* out, void* part,
     void* tickets, int B, int n_q_heads, int n_kv_heads, int hd,
-    int page_size, int max_pages, int n_splits, int dtype, float scale,
-    void* stream) {
+    int page_size, int max_pages, int n_splits, int dtype, int window,
+    float scale, void* stream) {
   return paged::decode_entry<false>(
       q, k_pages, v_pages, block_tables, kv_lens, out, part, tickets, B,
-      n_q_heads, n_kv_heads, hd, page_size, max_pages, n_splits, dtype, scale,
-      stream);
+      n_q_heads, n_kv_heads, hd, page_size, max_pages, n_splits, dtype, window,
+      scale, stream);
 }

@@ -21,15 +21,15 @@
 #include "paged_decode_kernel.cuh"
 
 // C entry point, bound from Python with ctypes.  `n_kv_heads` is Hkv (the
-// pool holds 2*Hkv head rows); `part` and `tickets` as for the split entry.
-// Returns the launch's cudaError_t.
+// pool holds 2*Hkv head rows); `part`, `tickets` and `window` as for the
+// split entry.  Returns the launch's cudaError_t.
 extern "C" int paged_decode_attention_fused(
     const void* q, const void* kv_pages, const void* block_tables,
     const void* kv_lens, void* out, void* part, void* tickets, int B,
     int n_q_heads, int n_kv_heads, int hd, int page_size, int max_pages,
-    int n_splits, int dtype, float scale, void* stream) {
+    int n_splits, int dtype, int window, float scale, void* stream) {
   return paged::decode_entry<true>(
       q, kv_pages, kv_pages, block_tables, kv_lens, out, part, tickets, B,
-      n_q_heads, n_kv_heads, hd, page_size, max_pages, n_splits, dtype, scale,
-      stream);
+      n_q_heads, n_kv_heads, hd, page_size, max_pages, n_splits, dtype, window,
+      scale, stream);
 }

@@ -60,15 +60,18 @@ struct PagedKV {
   }
 };
 
-// Argument checks and the dtype switch shared by the two C entry points;
-// returns the launch's cudaError_t (0 = launched).
+// Argument checks, the dtype switch and the window (0: none) shared by the
+// two C entry points; returns the launch's cudaError_t (0 = launched).
 template <bool FUSED>
 int decode_entry(const void* q, const void* k_pages, const void* v_pages,
                  const void* block_tables, const void* kv_lens, void* out,
                  void* part, void* tickets, int B, int n_q_heads,
                  int n_kv_heads, int hd, int page_size, int max_pages,
-                 int n_splits, int dtype, float scale, void* stream) {
-  if (page_size <= 0 || max_pages < 0) return (int)cudaErrorInvalidValue;
+                 int n_splits, int dtype, int window, float scale,
+                 void* stream) {
+  if (page_size <= 0 || max_pages < 0 || window < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const dec::Args a{q, out, static_cast<float*>(part),
                     static_cast<int*>(tickets), n_q_heads, 0, 0, n_splits,
                     0.f};
@@ -76,26 +79,29 @@ int decode_entry(const void* q, const void* k_pages, const void* v_pages,
   const int* lens = static_cast<const int*>(kv_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int capacity = max_pages * page_size;
-  switch (dtype) {
-    case kFloat32: {
-      const PagedKV<float, FUSED> kv{static_cast<const float*>(k_pages),
-                                     static_cast<const float*>(v_pages), bt,
-                                     lens, n_kv_heads, hd, page_size,
-                                     max_pages};
-      return (int)dec::launch_decode_splitk<float>(a, kv, B, n_kv_heads, hd,
-                                                   capacity, scale, s);
+  auto run = [&](auto span) -> int {
+    switch (dtype) {
+      case kFloat32: {
+        const PagedKV<float, FUSED> kv{static_cast<const float*>(k_pages),
+                                       static_cast<const float*>(v_pages),
+                                       bt, lens, n_kv_heads, hd, page_size,
+                                       max_pages};
+        return (int)dec::launch_decode_splitk<float>(
+            a, kv, B, n_kv_heads, hd, capacity, scale, s, span);
+      }
+      case kBFloat16: {
+        const PagedKV<__nv_bfloat16, FUSED> kv{
+            static_cast<const __nv_bfloat16*>(k_pages),
+            static_cast<const __nv_bfloat16*>(v_pages), bt, lens,
+            n_kv_heads, hd, page_size, max_pages};
+        return (int)dec::launch_decode_splitk<__nv_bfloat16>(
+            a, kv, B, n_kv_heads, hd, capacity, scale, s, span);
+      }
+      default:
+        return (int)cudaErrorInvalidValue;
     }
-    case kBFloat16: {
-      const PagedKV<__nv_bfloat16, FUSED> kv{
-          static_cast<const __nv_bfloat16*>(k_pages),
-          static_cast<const __nv_bfloat16*>(v_pages), bt, lens, n_kv_heads,
-          hd, page_size, max_pages};
-      return (int)dec::launch_decode_splitk<__nv_bfloat16>(
-          a, kv, B, n_kv_heads, hd, capacity, scale, s);
-    }
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  };
+  return window > 0 ? run(SlidingWindow{window}) : run(Causal{});
 }
 
 }  // namespace paged

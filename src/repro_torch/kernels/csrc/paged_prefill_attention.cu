@@ -30,15 +30,18 @@
 // layout's entry point (paged_prefill_attention_fused.cu).
 #include "paged_prefill_kernel.cuh"
 
-// C entry point, bound from Python with ctypes.  Returns the launch's
-// cudaError_t (0 = launched).
+// C entry point, bound from Python with ctypes.  `window` > 0 runs the
+// SlidingWindow instantiation (query i over keys q_offset + i - window < j
+// <= q_offset + i; tiles below every row's window are not read), 0 the
+// Causal one.  Returns the launch's cudaError_t (0 = launched).
 extern "C" int paged_prefill_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* kv_lens, const void* q_offset,
     void* out, int B, int Sq, int n_q_heads, int n_kv_heads, int hd,
-    int page_size, int max_pages, int dtype, float scale, void* stream) {
+    int page_size, int max_pages, int dtype, int window, float scale,
+    void* stream) {
   return paged::prefill_entry<false>(q, k_pages, v_pages, block_tables,
                                      kv_lens, q_offset, out, B, Sq, n_q_heads,
                                      n_kv_heads, hd, page_size, max_pages,
-                                     dtype, scale, stream);
+                                     dtype, window, scale, stream);
 }

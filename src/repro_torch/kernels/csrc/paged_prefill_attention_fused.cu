@@ -20,14 +20,15 @@
 #include "paged_prefill_kernel.cuh"
 
 // C entry point, bound from Python with ctypes.  `n_kv_heads` is Hkv (the
-// pool holds 2*Hkv head rows).  Returns the launch's cudaError_t.
+// pool holds 2*Hkv head rows); `window` as for the split entry.  Returns
+// the launch's cudaError_t.
 extern "C" int paged_prefill_attention_fused(
     const void* q, const void* kv_pages, const void* block_tables,
     const void* kv_lens, const void* q_offset, void* out, int B, int Sq,
     int n_q_heads, int n_kv_heads, int hd, int page_size, int max_pages,
-    int dtype, float scale, void* stream) {
+    int dtype, int window, float scale, void* stream) {
   return paged::prefill_entry<true>(q, kv_pages, kv_pages, block_tables,
                                     kv_lens, q_offset, out, B, Sq, n_q_heads,
                                     n_kv_heads, hd, page_size, max_pages,
-                                    dtype, scale, stream);
+                                    dtype, window, scale, stream);
 }

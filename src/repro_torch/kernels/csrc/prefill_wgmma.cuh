@@ -34,8 +34,11 @@
 //     floor of the kernels' bf16 gate -- where a single bf16 P (2^-9
 //     relative) misses that gate at outputs near 0.
 //   - A tile past every live row's causal bound or past kv_len is never
-//     loaded (the TPU kernel's whole-tile skip); tiles that every live row
-//     sees whole skip the per-element mask.
+//     loaded (the TPU kernel's whole-tile skip), nor, under a sliding
+//     window (the Span template argument), a tile wholly below every live
+//     row's window: the walk starts at the tile of the first row's first
+//     key.  Tiles that every live row sees whole skip the per-element
+//     mask.
 #pragma once
 
 #include "hopper_common.cuh"
@@ -88,13 +91,14 @@ __device__ __forceinline__ void load_kv_tile_async(
 
 // The attention of one CTA's packed rows [row0, row0 + 64) of sequence b,
 // kv head kv_head, over the keys staged through (k, v, row); kv_len is the
-// sequence's valid length, clipped to what the cache holds.
-template <int HD, typename Row>
+// sequence's valid length, clipped to what the cache holds; a row at
+// position pos sees keys span.lo(pos) .. pos.
+template <int HD, typename Row, typename Span = Causal>
 __device__ __forceinline__ void prefill_rows(
     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
     const __nv_bfloat16* k, const __nv_bfloat16* v, Row row, int b,
     int kv_head, int row0, int Sq, int n_q_heads, int group, int kv_len,
-    int q_off, float scale_log2) {
+    int q_off, float scale_log2, Span span = Span{}) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -104,6 +108,10 @@ __device__ __forceinline__ void prefill_rows(
   const int n_keys = max(0, min(kv_len, pos_last + 1));       // any row sees
   const int full_keys = max(0, min(kv_len, pos_first + 1));   // every row sees
   const int n_tiles = (n_keys + kKeys - 1) / kKeys;
+  // below every row's window: tiles before t0 are skipped; keys below
+  // lo_last are not seen by every row
+  const int t0 = Span::kWindowed ? min(span.lo(pos_first), n_keys) / kKeys : 0;
+  const int lo_last = span.lo(pos_last);
   auto q_row = [&](int r) {   // packed row r of this CTA in q and out
     const int p = row0 + r;
     return (((size_t)b * Sq + p / group) * n_q_heads + kv_head * group +
@@ -123,9 +131,9 @@ __device__ __forceinline__ void prefill_rows(
   }
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_tiles) {
+    if (t0 + s < n_tiles) {
       load_kv_tile_async<HD>(Smem<HD>::k(base, s), Smem<HD>::v(base, s), k,
-                             v, row, s * kKeys, n_keys);
+                             v, row, (t0 + s) * kKeys, n_keys);
     }
     hopper::cp_async_commit();
   }
@@ -144,21 +152,21 @@ __device__ __forceinline__ void prefill_rows(
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // l: this thread's part
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t0; t < n_tiles; ++t) {
     hopper::cp_async_wait<kStages - 2>();   // tile t (and Q) has landed
     hopper::fence_proxy_async();
     __syncthreads();   // ... for every thread, and tile t - 1 is done
     {
       const int nt = t + kStages - 1;
       if (nt < n_tiles) {
-        const int s = nt % kStages;
+        const int s = (nt - t0) % kStages;
         load_kv_tile_async<HD>(Smem<HD>::k(base, s), Smem<HD>::v(base, s), k,
                                v, row, nt * kKeys, n_keys);
       }
       hopper::cp_async_commit();
     }
-    const uint32_t k_s = Smem<HD>::k(base, t % kStages);
-    const uint32_t v_s = Smem<HD>::v(base, t % kStages);
+    const uint32_t k_s = Smem<HD>::k(base, (t - t0) % kStages);
+    const uint32_t v_s = Smem<HD>::v(base, (t - t0) % kStages);
 
     // S = Q K^T
     float s[32];
@@ -175,7 +183,8 @@ __device__ __forceinline__ void prefill_rows(
 
     // online softmax: s becomes p
     const int tile_start = t * kKeys;
-    const bool masked = tile_start + kKeys > full_keys;
+    const bool masked = tile_start + kKeys > full_keys ||
+                        (Span::kWindowed && tile_start < lo_last);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float mx = m[i];
@@ -186,7 +195,8 @@ __device__ __forceinline__ void prefill_rows(
           float x = s[4 * j + 2 * i + e] * scale_log2;
           if (masked) {
             const int key = tile_start + 8 * j + 2 * (lane % 4) + e;
-            if (!(live[i] && key <= pos[i] && key < kv_len)) {
+            if (!(live[i] && key <= pos[i] && key < kv_len &&
+                  (!Span::kWindowed || key >= span.lo(pos[i])))) {
               x = __uint_as_float(0xff800000u);   // -inf
             }
           }

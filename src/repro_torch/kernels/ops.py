@@ -43,35 +43,41 @@ def flash_decode_attention(q, k_cache, v_cache, kv_lens, *,
 
 def paged_prefill_chunk_attention(q, k_pages, v_pages, block_tables, kv_lens,
                                   q_offset, *, pages_per_tile: int = 1,
-                                  buffering_depth: int = 1):
+                                  buffering_depth: int = 1, window: int = 0):
     """(B, Sq, Hq, hd) chunk vs a (n_pages, ps, Hkv, hd) physical page pool
-    addressed through per-sequence block tables, with causal offset."""
+    addressed through per-sequence block tables, with causal offset; each
+    query over its last ``window`` positions only where ``window`` > 0."""
     return paged_prefill_attention(q, k_pages, v_pages, block_tables, kv_lens,
-                                   q_offset)
+                                   q_offset, window)
 
 
 def paged_prefill_chunk_attention_fused(q, kv_pages, block_tables, kv_lens,
                                         q_offset, *, pages_per_tile: int = 1,
-                                        buffering_depth: int = 1):
+                                        buffering_depth: int = 1,
+                                        window: int = 0):
     """``paged_prefill_chunk_attention`` over a fused head-interleaved pool
     ``(n_pages, ps, 2*Hkv, hd)``: each key's K and V are read as one
     contiguous run."""
     return paged_prefill_attention_fused(q, kv_pages, block_tables, kv_lens,
-                                         q_offset)
+                                         q_offset, window)
 
 
 def paged_flash_decode_attention(q, k_pages, v_pages, block_tables, kv_lens, *,
                                  pages_per_tile: int = 1,
-                                 buffering_depth: int = 1):
-    """(B, Hq, hd) single-token decode vs a paged pool + block tables."""
-    return paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens)
+                                 buffering_depth: int = 1, window: int = 0):
+    """(B, Hq, hd) single-token decode vs a paged pool + block tables; over
+    the last ``window`` keys only where ``window`` > 0."""
+    return paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens,
+                                  window)
 
 
 def paged_flash_decode_attention_fused(q, kv_pages, block_tables, kv_lens, *,
                                        pages_per_tile: int = 1,
-                                       buffering_depth: int = 1):
+                                       buffering_depth: int = 1,
+                                       window: int = 0):
     """``paged_flash_decode_attention`` over a fused head-interleaved pool."""
-    return paged_decode_attention_fused(q, kv_pages, block_tables, kv_lens)
+    return paged_decode_attention_fused(q, kv_pages, block_tables, kv_lens,
+                                        window)
 
 
 def swiglu_ffn(x, w_gate, w_up, w_down, *, block_m: int = 256,

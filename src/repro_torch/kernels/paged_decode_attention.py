@@ -27,6 +27,12 @@ the merge's f32 scratch and the stream's ticket buffer
 kernel.  The fused kernel reads each key's K and V as one contiguous run and
 otherwise computes what the split kernel computes, bit for bit.
 
+A sliding window (``window`` > 0: the query, at position kv_len - 1, over
+the last ``window`` keys) runs the kernels' ``SlidingWindow``
+instantiation, a template argument of the same body and so in the
+kernel's name in a trace: the splits start at the window's first key, so
+keys below it are neither read nor counted.
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.  The TPU kernel's ``pages_per_tile`` and
 ``buffering_depth`` (VMEM tile width and DMA depth) have no counterpart here.
@@ -44,9 +50,9 @@ from repro_torch.kernels.ref import (
     paged_decode_attention_ref as paged_decode_attention_plain,
 )
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_void_p]
-_FUSED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+_FUSED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -74,12 +80,15 @@ def _check(q, pools, block_tables, kv_lens, heads_per_kv):
     return B, Hq, Hkv, hd, ps
 
 
-def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens):
+def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens,
+                           window=0):
     """q (B, Hq, hd); k/v_pages (n_pages, page_size, Hkv, hd); block_tables
-    (B, max_pages) int32; kv_lens (B,) int32 -> (B, Hq, hd) in q's dtype."""
+    (B, max_pages) int32; kv_lens (B,) int32 -> (B, Hq, hd) in q's dtype.
+    ``window`` > 0: over the last ``window`` keys only (the kernel's
+    windowed instantiation, whose splits start at the window's first key)."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, block_tables,
-                                            kv_lens)
+                                            kv_lens, window)
     B, Hq, Hkv, hd, ps = _check(
         q, {"k_pages": k_pages, "v_pages": v_pages}, block_tables, kv_lens, 1)
     max_pages = block_tables.shape[1]
@@ -90,23 +99,26 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_lens):
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
             native.data_ptr(part), native.data_ptr(tickets), B, Hq, Hkv, hd,
-            ps, max_pages, n_splits, native.DTYPE_CODES[q.dtype],
+            ps, max_pages, n_splits, native.DTYPE_CODES[q.dtype], int(window),
             1.0 / math.sqrt(hd), stream)
     native.raise_on_error("paged_decode_attention", rc)
     paged_decode_attention.launches += 1
+    paged_decode_attention.windowed_launches += window > 0
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.windowed_launches = 0     # of them, the windowed ones
 
 
-def paged_decode_attention_fused(q, kv_pages, block_tables, kv_lens):
+def paged_decode_attention_fused(q, kv_pages, block_tables, kv_lens,
+                                 window=0):
     """q (B, Hq, hd); kv_pages (n_pages, page_size, 2*Hkv, hd) head-
     interleaved; block_tables (B, max_pages) int32; kv_lens (B,) int32
-    -> (B, Hq, hd) in q's dtype."""
+    -> (B, Hq, hd) in q's dtype; ``window`` as for the split layout."""
     if q.device.type == "cpu":
         return paged_decode_attention_fused_plain(q, kv_pages, block_tables,
-                                                  kv_lens)
+                                                  kv_lens, window)
     B, Hq, Hkv, hd, ps = _check(q, {"kv_pages": kv_pages}, block_tables,
                                 kv_lens, 2)
     max_pages = block_tables.shape[1]
@@ -117,11 +129,13 @@ def paged_decode_attention_fused(q, kv_pages, block_tables, kv_lens):
     rc = fn(q.data_ptr(), kv_pages.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), out.data_ptr(), native.data_ptr(part),
             native.data_ptr(tickets), B, Hq, Hkv, hd, ps, max_pages,
-            n_splits, native.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
-            stream)
+            n_splits, native.DTYPE_CODES[q.dtype], int(window),
+            1.0 / math.sqrt(hd), stream)
     native.raise_on_error("paged_decode_attention_fused", rc)
     paged_decode_attention_fused.launches += 1
+    paged_decode_attention_fused.windowed_launches += window > 0
     return out
 
 
 paged_decode_attention_fused.launches = 0
+paged_decode_attention_fused.windowed_launches = 0     # of them, the windowed ones

@@ -28,6 +28,12 @@ the f32 product.  In f32 they run one CTA per (sequence, query head,
 key's K and V as one contiguous run and otherwise computes what the split
 kernel computes, bit for bit.
 
+A sliding window (``window`` > 0: query i over keys ``q_offset + i -
+window < j <= q_offset + i``) runs the kernels' ``SlidingWindow``
+instantiation, a template argument of the same body and so in the
+kernel's name in a trace: the walk starts at the tile of the first row's
+first key, and tiles that every row sees whole skip the mask.
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -44,9 +50,9 @@ from repro_torch.kernels.ref import (
     paged_prefill_attention_ref as paged_prefill_attention_plain,
 )
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_void_p]
-_FUSED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+_FUSED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -78,13 +84,16 @@ def _check(q, pools, block_tables, kv_lens, q_offset, heads_per_kv):
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_tables, kv_lens,
-                            q_offset):
+                            q_offset, window=0):
     """q (B, Sq, Hq, hd); k/v_pages (n_pages, page_size, Hkv, hd);
     block_tables (B, max_pages) int32; kv_lens, q_offset (B,) int32
-    -> (B, Sq, Hq, hd) in q's dtype."""
+    -> (B, Sq, Hq, hd) in q's dtype.  ``window`` > 0: query i over keys
+    ``q_offset + i - window < j <= q_offset + i`` only (the kernel's
+    windowed instantiation, which skips the tiles below every row's
+    window)."""
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pages, v_pages, block_tables,
-                                             kv_lens, q_offset)
+                                             kv_lens, q_offset, window)
     B, Sq, Hq, Hkv, hd, ps = _check(
         q, {"k_pages": k_pages, "v_pages": v_pages}, block_tables, kv_lens,
         q_offset, 1)
@@ -93,24 +102,27 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, kv_lens,
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), kv_lens.data_ptr(), q_offset.data_ptr(),
             out.data_ptr(), B, Sq, Hq, Hkv, hd, ps, block_tables.shape[1],
-            native.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
+            native.DTYPE_CODES[q.dtype], int(window), 1.0 / math.sqrt(hd),
             native.stream_ptr(q.device))
     native.raise_on_error("paged_prefill_attention", rc)
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.windowed_launches += window > 0
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.windowed_launches = 0     # of them, the windowed ones
 
 
 def paged_prefill_attention_fused(q, kv_pages, block_tables, kv_lens,
-                                  q_offset):
+                                  q_offset, window=0):
     """q (B, Sq, Hq, hd); kv_pages (n_pages, page_size, 2*Hkv, hd) head-
     interleaved; block_tables (B, max_pages) int32; kv_lens, q_offset (B,)
-    int32 -> (B, Sq, Hq, hd) in q's dtype."""
+    int32 -> (B, Sq, Hq, hd) in q's dtype; ``window`` as for the split
+    layout."""
     if q.device.type == "cpu":
         return paged_prefill_attention_fused_plain(q, kv_pages, block_tables,
-                                                   kv_lens, q_offset)
+                                                   kv_lens, q_offset, window)
     B, Sq, Hq, Hkv, hd, ps = _check(q, {"kv_pages": kv_pages}, block_tables,
                                     kv_lens, q_offset, 2)
     out = torch.empty_like(q)
@@ -118,11 +130,13 @@ def paged_prefill_attention_fused(q, kv_pages, block_tables, kv_lens,
     rc = fn(q.data_ptr(), kv_pages.data_ptr(), block_tables.data_ptr(),
             kv_lens.data_ptr(), q_offset.data_ptr(), out.data_ptr(), B, Sq,
             Hq, Hkv, hd, ps, block_tables.shape[1],
-            native.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(hd),
+            native.DTYPE_CODES[q.dtype], int(window), 1.0 / math.sqrt(hd),
             native.stream_ptr(q.device))
     native.raise_on_error("paged_prefill_attention_fused", rc)
     paged_prefill_attention_fused.launches += 1
+    paged_prefill_attention_fused.windowed_launches += window > 0
     return out
 
 
 paged_prefill_attention_fused.launches = 0
+paged_prefill_attention_fused.windowed_launches = 0     # of them, the windowed ones

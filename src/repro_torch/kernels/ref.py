@@ -19,11 +19,13 @@ def chunked_prefill_attention_ref(
     v_cache,      # (B, Skv, Hkv, hd)
     kv_lens,      # (B,) valid KV length (prefix + chunk)
     q_offset,     # (B,) absolute position of q[:, 0] (= prefix length)
+    window=0,     # > 0: each query sees its last ``window`` positions only
 ):
     """Chunk of queries attends to (prefix ‖ itself) with a causal offset.
 
     Query i (absolute pos q_offset + i) sees key j iff j <= q_offset + i and
-    j < kv_lens.  All math in f32.
+    j < kv_lens, and with a ``window`` also j > q_offset + i - window.  All
+    math in f32.
     """
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k_cache.shape[1], k_cache.shape[2]
@@ -40,6 +42,8 @@ def chunked_prefill_attention_ref(
     mask = (k_pos[:, None, :] <= q_pos[:, :, None]) & (
         k_pos[:, None, :] < kv_lens.long()[:, None, None]
     )                                                            # (B, Sq, Skv)
+    if window:
+        mask &= k_pos[:, None, :] > q_pos[:, :, None] - window
     scores = scores.masked_fill(~mask[:, None, None, :, :], -math.inf)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, vf)
@@ -51,15 +55,20 @@ def decode_attention_ref(
     k_cache,      # (B, S, Hkv, hd)
     v_cache,      # (B, S, Hkv, hd)
     kv_lens,      # (B,) valid lengths
+    window=0,     # > 0: the last ``window`` valid keys only
 ):
     """Single-token flash-decode reference: full softmax over the valid
-    cache."""
+    cache (the query sits at position kv_len - 1), or over its last
+    ``window`` keys."""
     B, Hq, hd = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     g = Hq // Hkv
     qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, Hkv, g, hd)
     scores = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float())
-    mask = torch.arange(S, device=q.device)[None, :] < kv_lens.long()[:, None]
+    k_pos = torch.arange(S, device=q.device)[None, :]
+    mask = k_pos < kv_lens.long()[:, None]
+    if window:
+        mask &= k_pos >= kv_lens.long()[:, None] - window
     scores = scores.masked_fill(~mask[:, None, None, :], -math.inf)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.float())
@@ -79,20 +88,21 @@ def gather_pages(pages, block_tables):
 
 
 def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, kv_lens,
-                                q_offset):
+                                q_offset, window=0):
     """Paged chunked-prefill reference: gather the block table into a dense
     cache, then the exact dense computation."""
     return chunked_prefill_attention_ref(
         q, gather_pages(k_pages, block_tables),
-        gather_pages(v_pages, block_tables), kv_lens, q_offset,
+        gather_pages(v_pages, block_tables), kv_lens, q_offset, window,
     )
 
 
-def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, kv_lens):
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, kv_lens,
+                               window=0):
     """Paged flash-decode reference via dense gather."""
     return decode_attention_ref(
         q, gather_pages(k_pages, block_tables),
-        gather_pages(v_pages, block_tables), kv_lens,
+        gather_pages(v_pages, block_tables), kv_lens, window,
     )
 
 
@@ -117,19 +127,20 @@ def fuse_pages(k_pages, v_pages):
 
 
 def paged_prefill_attention_fused_ref(q, kv_pages, block_tables, kv_lens,
-                                      q_offset):
+                                      q_offset, window=0):
     """Fused-layout paged chunked-prefill reference (un-interleave + split
     reference)."""
     k_pages, v_pages = split_fused_pages(kv_pages)
     return paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
-                                       kv_lens, q_offset)
+                                       kv_lens, q_offset, window)
 
 
-def paged_decode_attention_fused_ref(q, kv_pages, block_tables, kv_lens):
+def paged_decode_attention_fused_ref(q, kv_pages, block_tables, kv_lens,
+                                     window=0):
     """Fused-layout paged flash-decode reference."""
     k_pages, v_pages = split_fused_pages(kv_pages)
     return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
-                                      kv_lens)
+                                      kv_lens, window)
 
 
 def quantize_pages(pages):

@@ -292,9 +292,11 @@ def flash_attention(q, k, v, *, q_offset=0, kv_lens=None, causal: bool = True,
 
 def qkv_project(p, x, cfg, positions=None, rope: bool = True,
                 rope_tabs=None):
-    """x: (B, S, D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with optional RoPE;
-    ``rope_tabs`` is ``rope_tables(positions, ...)`` when the caller has
-    them (the engine round computes them once for all layers)."""
+    """x: (B, S, D) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd): the projections,
+    their biases (``bq``...), QK-norm (``q_norm``, ``k_norm``), then RoPE
+    unless ``rope`` is False; ``rope_tabs`` is ``rope_tables(positions,
+    ...)`` when the caller has them (the engine round computes them once
+    for all layers)."""
     B, S, D = x.shape
 
     def proj(w):
@@ -305,6 +307,9 @@ def qkv_project(p, x, cfg, positions=None, rope: bool = True,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    if "q_norm" in p:           # QK-norm: RMSNorm over hd, before RoPE
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if rope and positions is not None:
         if rope_tabs is None:
             rope_tabs = rope_tables(positions, q.shape[-1], cfg.rope_theta)
@@ -351,12 +356,21 @@ def init_moe(gen, cfg, dtype, device):
             w[e] = dense_init(gen, (rows, cols), dtype, device, scale=scale)
         return w
 
-    return {
+    p = {
         "router": dense_init(gen, (d, m.n_experts), torch.float32, device),
         "w_gate": experts(d, m.d_ff),
         "w_up": experts(d, m.d_ff),
         "w_down": experts(m.d_ff, d),
     }
+    if m.held != m.n_experts:       # the experts held here only
+        p.update({k: w[m.first_held:m.first_held + m.held].clone()
+                  for k, w in p.items() if k != "router"})
+    if m.scoring == "sigmoid":      # the selection bias
+        p["router_bias"] = torch.zeros((m.n_experts,), dtype=torch.float32,
+                                       device=device)
+    if m.n_shared:
+        p["shared"] = init_ffn(gen, d, m.shared_d_ff, dtype, device)
+    return p
 
 
 def moe_capacity(tokens_per_group: int, n_experts: int, top_k: int,
@@ -386,6 +400,29 @@ def moe_route(p, xg, top_k: int):
     top_w, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_idx = top_w[..., :top_k], top_idx[..., :top_k]
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp(min=1e-9)
+    return top_w, top_idx
+
+
+def route(p, xg, m):
+    """The router of ``m`` (a ``MoEConfig``): ``(top_w (G, t, K) f32,
+    top_idx (G, t, K) int64)`` over all ``m.n_experts``.  Softmax scoring is
+    ``moe_route``.  Sigmoid scoring is DeepSeek-V3's router: s =
+    sigmoid(x W_r) in f32, the top-k chosen on s + the selection bias
+    (``router_bias``) in ``moe_route``'s order, their weights the chosen s,
+    renormalised to sum 1 (+ 1e-20, as DeepSeek-V3's), times
+    ``m.routed_scale``."""
+    if m.scoring == "softmax":
+        top_w, top_idx = moe_route(p, xg, m.top_k)
+    else:
+        assert m.scoring == "sigmoid", m.scoring
+        s = torch.sigmoid(xg.float() @ p["router"])
+        _, top_idx = torch.sort(s + p["router_bias"], dim=-1,
+                                descending=True, stable=True)
+        top_idx = top_idx[..., :m.top_k]
+        top_w = s.gather(-1, top_idx)
+        top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-20)
+    if m.routed_scale != 1.0:
+        top_w = top_w * m.routed_scale
     return top_w, top_idx
 
 
@@ -456,9 +493,13 @@ def _expert_rows(p, x, cfg, group_size: int, order: str):
     f32, each kept choice's expert output (G, t, K, D), zeros where
     dropped)."""
     m = cfg.moe
+    if m.held != m.n_experts:
+        raise NotImplementedError(
+            "a share of the experts runs in the engine round only "
+            "(moe_round); the batched expert GEMMs hold every expert")
     xg = moe_groups(x, group_size)
     G, t, D = xg.shape
-    top_w, top_idx = moe_route(p, xg, m.top_k)
+    top_w, top_idx = route(p, xg, m)
     C = moe_capacity(t, m.n_experts, m.top_k, m.capacity_factor)
     n_slots = m.n_experts * G * C
     dest = capacity_rows(top_idx, m.n_experts, C, order)
@@ -512,8 +553,14 @@ def moe_round(p, x, cfg, lane_mask, counts=None, group_size: int = 0):
     semantics (``cfg.moe_impl``), computing only the kept (token, choice)
     rows and reading only the experts that hold one (the grouped kernels,
     ``kernels.grouped_swiglu``).  x (B, C, D); lane_mask (B, C) the round's
-    real lanes; ``counts`` (2,) int64, if given, gains (experts read, expert
-    rows computed), on the device and inside a CUDA graph too.
+    real lanes; ``counts`` (3,) int64, if given, gains (experts read, expert
+    rows computed, real lanes' choices of experts not held here), on the
+    device and inside a CUDA graph too.
+
+    The router (``route``) scores every expert; where only some are held
+    here (``cfg.moe.first_held``, ``n_held``: a chip's share under expert
+    parallelism) the choices of absent experts are dropped -- not computed,
+    their part left out of the output -- and the rest keep their weights.
 
     Where no choice can drop (``moe_capacity >= `` the group's tokens:
     capacity factor at least E / K), only real lanes enter, and a masked
@@ -544,20 +591,26 @@ def moe_round(p, x, cfg, lane_mask, counts=None, group_size: int = 0):
             counts[0] += m.n_experts
             counts[1] += m.n_experts * G * C
         return _combine(*_expert_rows(p, x, cfg, group_size, order), x, order)
-    top_w, top_idx = moe_route(p, xg, m.top_k)
+    top_w, top_idx = route(p, xg, m)
+    # each choice's expert among those held here, and whether it is held
+    local = top_idx - m.first_held
+    held = (local >= 0) & (local < m.held)
+    real = lane_mask.reshape(G, t, 1)
     if C >= t:
-        kept = lane_mask.reshape(G, t, 1).expand(G, t, m.top_k)
+        kept = real.expand(G, t, m.top_k)
         # a masked lane's weights too: a NaN lane's would make its 0 NaN
         top_w = torch.where(kept, top_w, 0.0)
     else:
         kept = capacity_rank(top_idx, order) < C
-    lay = GK.expert_layout(top_idx.reshape(G * t, m.top_k),
-                           kept.reshape(G * t, m.top_k), m.n_experts)
+    kept = kept & held
+    lay = GK.expert_layout(local.clamp(0, m.held - 1).reshape(G * t, m.top_k),
+                           kept.reshape(G * t, m.top_k), m.held)
     h = GK.grouped_gate_up(xg.reshape(G * t, D), p["w_gate"], p["w_up"],
                            lay.tok, lay.tiles, lay.n_tiles)
     y = GK.grouped_down(h, p["w_down"], lay.tiles, lay.n_tiles)
     rows = torch.where(kept[..., None], y[lay.row].view(G, t, m.top_k, D),
                        0.0)
     if counts is not None:
-        counts.add_(torch.stack([(lay.counts > 0).sum(), lay.counts.sum()]))
+        counts.add_(torch.stack([(lay.counts > 0).sum(), lay.counts.sum(),
+                                 (real & ~held).sum()]))
     return _combine(top_w, rows, x, order)

@@ -5,7 +5,9 @@ init, the whole-sequence entry points -- ``train_hidden`` / ``train_logits``,
 over a dense per-slot KV cache or a paged one, split and fused KV layouts
 (the port of ``repro/models/transformer.py``).  The engine's rounds carry
 token ids only, so the VLM family serves its text backbone there; the
-whole-sequence entry points take its patch-embedding prefix.
+whole-sequence entry points take its patch-embedding prefix.  Layers of
+mixed kinds (a ``LayeredModelConfig``: per-layer windows, RoPE or none,
+dense or expert FFNs, QK-norm, post-norm) run in the paged round only.
 
 Parameters are a dict mirroring the JAX pytree, except that ``"layers"`` is
 a list with one dict per layer instead of arrays with a stacked leading
@@ -29,13 +31,21 @@ def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
-def _block_init(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
+def _block_init(gen, cfg: ModelConfig, dtype, device,
+                l: int = 0) -> Dict[str, Any]:
+    # each branch's norm: on its input, or under post-norm on its output
+    attn_norm, ffn_norm = (("post_attn_norm", "post_ffn_norm")
+                           if cfg.post_norm else ("attn_norm", "ffn_norm"))
     p: Dict[str, Any] = {
-        "attn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        attn_norm: torch.ones((cfg.d_model,), dtype=dtype, device=device),
         "attn": L.init_attention(gen, cfg, dtype, device),
-        "ffn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        ffn_norm: torch.ones((cfg.d_model,), dtype=dtype, device=device),
     }
-    if cfg.moe is not None and cfg.moe.every == 1:
+    if cfg.qk_norm:
+        hd = cfg.resolved_head_dim
+        for k in ("q_norm", "k_norm"):
+            p["attn"][k] = torch.ones((hd,), dtype=dtype, device=device)
+    if cfg.sparse(l):
         p["moe"] = L.init_moe(gen, cfg, dtype, device)
         if cfg.moe.dense_residual:
             p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device)
@@ -48,8 +58,11 @@ def _block_ffn(p, x, cfg: ModelConfig, lane_mask=None, moe_counts=None):
     """The FFN block.  ``lane_mask`` (B, C): an engine round's real lanes,
     whose MoE runs on the routed rows only (``L.moe_round``, adding to
     ``moe_counts``); without it the whole-sequence entry points and
-    training run the batched expert GEMMs, which have a gradient."""
-    h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    training run the batched expert GEMMs, which have a gradient.  A
+    shared expert (``moe["shared"]``) runs on every lane beside the routed
+    ones; under ``cfg.post_norm`` the branch's sum is normed on its way to
+    the residual, and its input is not."""
+    h = x if cfg.post_norm else L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if "moe" in p:
         if lane_mask is not None:
             out = L.moe_round(p["moe"], h, cfg, lane_mask, moe_counts)
@@ -57,10 +70,14 @@ def _block_ffn(p, x, cfg: ModelConfig, lane_mask=None, moe_counts=None):
             out = L.moe_ffn_scatter(p["moe"], h, cfg)
         else:
             out = L.moe_ffn(p["moe"], h, cfg)
+        if "shared" in p["moe"]:
+            out = out + L.ffn(p["moe"]["shared"], h)
         if "ffn" in p:  # arctic's dense residual, a parallel branch
             out = out + L.ffn(p["ffn"], h)
     else:
         out = L.ffn(p["ffn"], h)
+    if cfg.post_norm:
+        out = L.rms_norm(out, p["post_ffn_norm"], cfg.norm_eps)
     return x + out
 
 
@@ -135,8 +152,8 @@ class TransformerLM:
         params = {
             "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model), dt,
                                   device, scale=0.02),
-            "layers": [_block_init(gen, cfg, dt, device)
-                       for _ in range(cfg.n_layers)],
+            "layers": [_block_init(gen, cfg, dt, device, l)
+                       for l in range(cfg.n_layers)],
             "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
         }
         if not cfg.tie_embeddings:
@@ -144,6 +161,14 @@ class TransformerLM:
                 gen, (cfg.d_model, cfg.vocab_size), dt, device,
                 scale=1.0 / math.sqrt(cfg.d_model))
         return params
+
+    def _uniform(self, what: str) -> None:
+        """Refuse layers of mixed kinds where only the engine's paged round
+        computes them."""
+        if not self.cfg.uniform_layers:
+            raise NotImplementedError(
+                f"{self.cfg.name}: layers of mixed kinds (windows, RoPE, "
+                f"FFN, norms) run in chunked_step_paged only, not in {what}")
 
     def _unembed(self, params, x):
         if "lm_head" in params:
@@ -171,6 +196,7 @@ class TransformerLM:
         (L, B, S, Hkv, hd) or None).  ``remat`` recomputes each layer in the
         backward pass (``torch.utils.checkpoint``) when grad is enabled."""
         cfg = self.cfg
+        self._uniform("the whole-sequence entry points")
         ks, vs = [], []
         for _, lp in trip_items(params["layers"], device=x.device):
             if remat and torch.is_grad_enabled():
@@ -252,6 +278,7 @@ class TransformerLM:
         tokens already cached.  The cache dict's tensors are updated IN
         PLACE and the dict is returned with the logits (B, V)."""
         cfg = self.cfg
+        self._uniform("the ring-cache decode")
         embed = params["embed"]
         x = embed[tokens.to(embed.device).long()]
         lens = lens.to(embed.device)
@@ -290,7 +317,12 @@ class TransformerLM:
         Zeroing also makes duplicate sink indices harmless: every write to
         that row carries the same value.  ``moe_counts`` (2,) int64, if
         given, gains each MoE layer's (experts read, expert rows).  Returns
-        the logits at each slot's last chunk position."""
+        the logits at each slot's last chunk position.
+
+        Each layer runs by its kind (``ModelConfig.window``, ``rope``,
+        ``sparse``; ``qk_norm`` and ``post_norm``): pre-norm, or each
+        branch normed on its output; RoPE or none; its window in
+        ``attend``; the dense FFN or the experts."""
         cfg = self.cfg
         keep = write_mask[:, :, None, None]
         x = params["embed"][tokens.long()]
@@ -298,13 +330,19 @@ class TransformerLM:
         rope_tabs = L.rope_tables(positions, cfg.resolved_head_dim,
                                   cfg.rope_theta)
         for l, lp in enumerate(params["layers"]):
-            h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+            # each layer by its kind: pre- or post-norm, RoPE or none, its
+            # window (``attend``), dense or experts (``_block_ffn``)
+            h = x if cfg.post_norm else L.rms_norm(x, lp["attn_norm"],
+                                                   cfg.norm_eps)
             q, k_new, v_new = L.qkv_project(lp["attn"], h, cfg, positions,
+                                            rope=cfg.rope(l),
                                             rope_tabs=rope_tabs)
             k_new = torch.where(keep, k_new, 0.0)
             v_new = torch.where(keep, v_new, 0.0)
-            y = x + L.attn_output(lp["attn"], attend(l, q, k_new, v_new), cfg)
-            x = _block_ffn(lp, y, cfg, write_mask, moe_counts)
+            a = L.attn_output(lp["attn"], attend(l, q, k_new, v_new), cfg)
+            if cfg.post_norm:
+                a = L.rms_norm(a, lp["post_attn_norm"], cfg.norm_eps)
+            x = _block_ffn(lp, x + a, cfg, write_mask, moe_counts)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         last = (chunk_lens - 1).clamp(min=0).long()
         x_last = x[torch.arange(x.shape[0], device=x.device), last]  # (B, D)
@@ -326,9 +364,14 @@ class TransformerLM:
         Every bucket, C == 1 included, attends through
         ``prefill_chunk_attention`` over ``cache[l][:, :-1]`` -- the
         reference's exact computation -- which reads that view in place.
+        Full attention only: a window raises ``NotImplementedError`` (the
+        paged layouts take it).
         """
         cfg = self.cfg
-        assert not cfg.sliding_window, "engine demo path supports linear caches"
+        if any(cfg.window(l) for l in range(cfg.n_layers)):
+            raise NotImplementedError(
+                f"{cfg.name}: the dense per-slot layout computes full "
+                "attention only; the paged layouts take windows")
         B, C = tokens.shape
         S_pad = cache["k"].shape[2]          # S + 1 (padding sink row)
         dev = tokens.device
@@ -372,11 +415,13 @@ class TransformerLM:
         old buffer); returns the logits at each slot's last chunk position.
         A bucket of C == 1 runs the paged decode kernel, C > 1 the paged
         prefill kernel (decode slots of a mixed round included), each in the
-        pool's layout.  ``moe_counts``: the MoE counter (``_round``).
+        pool's layout; a layer with a window (``cfg.window(l)``: every layer
+        under a uniform ``sliding_window``, or each layer's own) runs the
+        kernel's windowed instantiation.  Each layer runs by its kind
+        (``_round``).  ``moe_counts``: the MoE counter (``_round``).
         """
         assert kv_layout in ("split", "fused"), kv_layout
         cfg = self.cfg
-        assert not cfg.sliding_window, "engine demo path supports linear caches"
         fused = kv_layout == "fused"
         B, C = tokens.shape
         n_phys, ps = (kv_pages["kv"] if fused else kv_pages["k"]).shape[1:3]
@@ -400,20 +445,22 @@ class TransformerLM:
                 return self._attend_fused(
                     kv_pages["kv"][l], q, k_new, v_new, write_pos,
                     block_tables, kv_lens, lens, pages_per_tile,
-                    buffering_depth)
+                    buffering_depth, cfg.window(l))
             return self._attend_split(
                 kv_pages["k"][l], kv_pages["v"][l], q, k_new, v_new,
                 write_pos, block_tables, kv_lens, lens, pages_per_tile,
-                buffering_depth)
+                buffering_depth, cfg.window(l))
 
         return self._round(params, tokens, positions, write_mask, chunk_lens,
                            attend, moe_counts)
 
     @staticmethod
     def _attend_split(ck, cv, q, k_new, v_new, write_pos, block_tables,
-                      kv_lens, lens, pages_per_tile, buffering_depth):
+                      kv_lens, lens, pages_per_tile, buffering_depth,
+                      window=0):
         """Scatter one layer's new K and V into the split pools
-        ``(n_phys, ps, Hkv, hd)`` and attend through them."""
+        ``(n_phys, ps, Hkv, hd)`` and attend through them (over the last
+        ``window`` positions of each query where ``window`` is set)."""
         B, C = q.shape[:2]
         n_rows = ck.shape[0] * ck.shape[1]
         ck.view(n_rows, *ck.shape[2:]).index_put_(
@@ -424,19 +471,20 @@ class TransformerLM:
             return kops.paged_flash_decode_attention(
                 q[:, 0], ck, cv, block_tables, kv_lens,
                 pages_per_tile=pages_per_tile,
-                buffering_depth=buffering_depth,
+                buffering_depth=buffering_depth, window=window,
             )[:, None]
         return kops.paged_prefill_chunk_attention(
             q, ck, cv, block_tables, kv_lens, lens,
             pages_per_tile=pages_per_tile, buffering_depth=buffering_depth,
+            window=window,
         )
 
     @staticmethod
     def _attend_fused(ckv, q, k_new, v_new, write_pos, block_tables, kv_lens,
-                      lens, pages_per_tile, buffering_depth):
+                      lens, pages_per_tile, buffering_depth, window=0):
         """Interleave one layer's new K/V onto the head axis, write them
         with ONE scatter into the fused pool ``(n_phys, ps, 2*Hkv, hd)``
-        and attend through it."""
+        and attend through it (``window`` as for ``_attend_split``)."""
         B, C, Hkv, hd = k_new.shape
         kv_new = torch.stack([k_new, v_new], dim=3).reshape(B, C, 2 * Hkv, hd)
         n_rows = ckv.shape[0] * ckv.shape[1]
@@ -446,9 +494,10 @@ class TransformerLM:
             return kops.paged_flash_decode_attention_fused(
                 q[:, 0], ckv, block_tables, kv_lens,
                 pages_per_tile=pages_per_tile,
-                buffering_depth=buffering_depth,
+                buffering_depth=buffering_depth, window=window,
             )[:, None]
         return kops.paged_prefill_chunk_attention_fused(
             q, ckv, block_tables, kv_lens, lens,
             pages_per_tile=pages_per_tile, buffering_depth=buffering_depth,
+            window=window,
         )

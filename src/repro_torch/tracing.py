@@ -172,8 +172,10 @@ def summary(spans: List[Span]) -> List[str]:
     """The operator's summary of a traced serve, one line each: self ms per
     round of each nesting span, device ms per round by chunk bucket, the
     experts read and expert rows computed per round by bucket (a model with
-    experts), queue wait p50 / p99, the LPRS rounds over their target and
-    the predictor's median absolute error."""
+    experts) and the share of choices routed to experts not held here, the
+    share of their contexts' keys that sliding-window layers skip, queue
+    wait p50 / p99, the LPRS rounds over their target and the predictor's
+    median absolute error."""
     closed = [s for s in spans if s.t1 and s.name != QUEUE]
     dispatch = {s.attrs["round"]: s for s in closed if s.name == "engine.dispatch"}
     n = max(len(dispatch), 1)
@@ -204,6 +206,19 @@ def summary(spans: List[Span]) -> List[str]:
             f"C={C} {np.mean([e for e, _ in v]):.1f} experts read, "
             f"{np.mean([n for _, n in v]):.1f} expert rows ({len(v)} rounds)"
             for C, v in sorted(moe.items())))
+        rows = sum(d.attrs["expert_rows"] for d in drains.values()
+                   if "expert_rows" in d.attrs)
+        absent = sum(d.attrs.get("absent_choices", 0) for d in drains.values())
+        if absent:
+            lines.append(f"MoE choices of experts not held here: {absent} of "
+                         f"{rows + absent} ({100 * absent / (rows + absent):.1f}%), "
+                         "dropped")
+    window = sum(s.attrs.get("window_keys", 0) for s in dispatch.values())
+    if window:
+        context = sum(s.attrs["window_context_keys"] for s in dispatch.values())
+        lines.append(f"sliding-window layers read {window} of the {context} "
+                     f"keys in their rows' contexts: "
+                     f"{100 * (1 - window / context):.1f}% skipped")
 
     end = max((max(s.t0, s.t1) for s in spans), default=0)
     waits = [_ms((s.t1 or end) - s.t0) for s in spans

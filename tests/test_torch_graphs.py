@@ -206,6 +206,38 @@ def test_replay_adds_the_graphs_launches_once_each():
     assert graphs.launch_counts() == before
 
 
+def test_capture_keeps_the_windowed_launches_apart(monkeypatch):
+    """A round of 8 layers, 6 of them windowed: the capture holds both
+    counts, puts both back, and each replay adds both again."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g, pool=None, stream=None:
+                        contextlib.nullcontext())
+    before = graphs.launch_counts()
+    out = torch.ones(2)
+
+    def round_():
+        for l in range(8):
+            paged_prefill_attention.launches += 1
+            paged_prefill_attention.windowed_launches += l % 4 != 3
+        return (out,)
+
+    g = graphs.capture(round_, pool=None, stream=None)
+    assert graphs.launch_counts() == before
+    assert g.launches == {"paged_prefill_attention": 8,
+                          "paged_prefill_attention.windowed": 6}
+    g.replay()
+    g.replay()
+    after = graphs.launch_counts()
+    assert (after["paged_prefill_attention"],
+            after["paged_prefill_attention.windowed"]) == (
+        before["paged_prefill_attention"] + 16,
+        before["paged_prefill_attention.windowed"] + 12)
+    graphs.add_launches({"paged_prefill_attention": 16,
+                         "paged_prefill_attention.windowed": 12}, -1)
+    assert graphs.launch_counts() == before
+
+
 def test_capture_takes_back_what_the_recording_counted(monkeypatch):
     """Recording a round runs each wrapper once (each adds to its count)
     but launches nothing: the capture keeps the deltas for the replays and

@@ -370,12 +370,16 @@ def test_llava_serve_matches_jax_engine(llava, layout):
 
 
 def test_mixtral_fails_at_the_sliding_window_assertion_in_both():
+    """The reference's chunked round asserts full attention; the port's
+    paged layouts now take the window (tests/test_torch_exaone.py holds
+    them against the ring decode), and its dense layout refuses it."""
     jcfg, tcfg = _cfgs("mixtral-8x7b")
     with pytest.raises(AssertionError, match="linear caches"):
         _jax_serve(jcfg, _jax_init(jcfg),
                    "split")
-    with pytest.raises(AssertionError, match="linear caches"):
-        _torch_serve(tcfg, None, "split")
+    assert len(_torch_serve(tcfg, None, "split")) == WORKLOAD["n_requests"]
+    with pytest.raises(NotImplementedError, match="paged layouts take windows"):
+        _torch_serve(tcfg, None, "dense")
 
 
 @pytest.mark.parametrize("family", ["hybrid", "ssm", "encdec"])
@@ -458,7 +462,7 @@ def test_grouped_round_matches_jax_scatter(setting, dtype):
         jp, jnp.asarray(x, jnp.dtype(dtype)), jcfg), np.float32)
     mask = _lane_mask(rng, B, S, GROUPED_SETTINGS[setting][2])
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
-    counts = torch.zeros(2, dtype=torch.long)
+    counts = torch.zeros(3, dtype=torch.long)
     got = L.moe_round(tp, tx, tcfg, torch.from_numpy(mask),
                       counts).float().numpy()
     rows = int(counts[1])
@@ -668,17 +672,17 @@ def test_moe_counter_on_a_known_routing(cf):
         x[0, i, (2 * i) % E] = 2.0
         x[0, i, (2 * i + 1) % E] = 1.0
     lanes = torch.tensor([[True] * 4 + [False] * 2])
-    counts = torch.zeros(2, dtype=torch.long)
+    counts = torch.zeros(3, dtype=torch.long)
     L.moe_round(p, x, cfg, lanes, counts)
     got = counts.tolist()
     if cf == 64.0:
         # lanes 0-3 reach experts 0-7 once each
-        assert got == [8, 8]
+        assert got == [8, 8, 0]
     else:
         # capacity ceil(6 * 2 / 8 * 1.25) = 2 < 6: every lane takes it;
         # lanes 4, 5 reach experts 0-3 again, each holding two rows
         assert L.moe_capacity(T, E, K, cf) == 2
-        assert got == [8, 12]
+        assert got == [8, 12, 0]
 
 
 def test_whole_sequence_and_training_keep_the_batched_gemms(monkeypatch,
@@ -701,7 +705,7 @@ def test_whole_sequence_and_training_keep_the_batched_gemms(monkeypatch,
     shape = (tcfg.n_layers, 9, ps, tcfg.n_kv_heads, tcfg.resolved_head_dim)
     pool = {n: torch.zeros(shape) for n in ("k", "v")}
     tables = torch.arange(8, dtype=torch.int32).view(B, 4)
-    counts = torch.zeros(2, dtype=torch.long)
+    counts = torch.zeros(3, dtype=torch.long)
     impl.chunked_step_paged(tparams, tokens[:, :C], pool,
                             torch.zeros(B, dtype=torch.int32),
                             torch.tensor([C, 2], dtype=torch.int32), tables,
@@ -746,7 +750,7 @@ def test_round_takes_batched_gemms_only_above_the_capacity(monkeypatch, side):
     monkeypatch.setattr(GK, "grouped_gate_up", counted_gate_up)
     x = torch.from_numpy(_inputs(np.random.default_rng(8), 4, t // 4,
                                  tcfg.d_model, nan=False))
-    counts = torch.zeros(2, dtype=torch.long)
+    counts = torch.zeros(3, dtype=torch.long)
     got = L.moe_round(tp, x, tcfg, torch.ones((4, t // 4), dtype=torch.bool),
                       counts)
     assert calls == {"expert_ffn": int(batched), "grouped": int(not batched)}
@@ -754,7 +758,7 @@ def test_round_takes_batched_gemms_only_above_the_capacity(monkeypatch, side):
     want = L.moe_ffn_scatter(tp, x, tcfg)
     if batched:
         assert torch.equal(got, want)
-        assert counts.tolist() == [m.n_experts, m.n_experts * C]
+        assert counts.tolist() == [m.n_experts, m.n_experts * C, 0]
     else:
         _close(got.numpy(), want.numpy(), "float32")
         assert int(counts[1]) <= t * m.top_k

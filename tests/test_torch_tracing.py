@@ -3,7 +3,9 @@ at the tiny size: a tracer that is off records nothing and changes no
 output; spans nest as the loop nests; the rounds' attributes add up to the
 engine's and the scheduler's own counters; each request's queue wait opens
 at its submit and ends before its first token; anchors put program spans on
-``torch.profiler``'s clock; ``launch.serve --spans`` writes a Chrome trace.
+``torch.profiler``'s clock; ``launch.serve --spans`` writes a Chrome trace;
+the keys each kind of layer reads (known lengths) and the choices of
+experts not held here (a known routing) reach the spans and the summary.
 """
 import json
 import time
@@ -272,3 +274,70 @@ def test_dense_model_has_no_moe_counts(traced):
     spans = traced[0]
     assert not any("expert_rows" in s.attrs for s in spans)
     assert not any(line.startswith("MoE") for line in tracing.summary(spans))
+
+
+def _layered(**kw):
+    """Tiny qwen1.5-0.5b's sizes as a ``LayeredModelConfig`` (float32)."""
+    import dataclasses
+    from repro_torch.configs.base import LayeredModelConfig
+    cfg = tiny_config("qwen1.5-0.5b").with_(param_dtype="float32")
+    return LayeredModelConfig(**{**{f.name: getattr(cfg, f.name)
+                                    for f in dataclasses.fields(cfg)}, **kw})
+
+
+def test_dispatch_counts_the_keys_each_kind_of_layer_reads():
+    """Known lengths: a decode at 9 keys cached, a chunk of 6 from 0 and one
+    of 3 from 2, under windows (3, 0, 3, 0): each sliding layer reads
+    min(c + n, W + n - 1) keys a row (3 + 6 + 5), each global one c + n (10
+    + 6 + 5); a traced serve puts the counts on every dispatch span and the
+    summary reports the share the windows skip."""
+    from types import SimpleNamespace as NS
+    cfg = _layered(layer_windows=(3, 0, 3, 0))
+    assert cfg.n_layers == 4
+    eng = TorchEngine(cfg, EngineConfig(n_slots=4, max_context=256,
+                                        chunk_buckets=(1, 16, 32, 64)),
+                      device="cpu")
+    batch = NS(decode_reqs=[NS(context_len=10)],
+               prefill_chunks=[(NS(prefill_done=0), 6), (NS(prefill_done=2), 3)])
+    assert eng._keys_read(batch) == {"window_keys": 2 * 14, "full_keys": 2 * 21,
+                                     "window_context_keys": 2 * 21}
+    tracer = tracing.Tracer()
+    _serve(eng, tracer)
+    spans = [s.attrs for s in tracer.spans() if s.name == "engine.dispatch"]
+    assert spans and all(a["full_keys"] == a["window_context_keys"]
+                         >= a["window_keys"] > 0 for a in spans)
+    assert any(a["window_keys"] < a["window_context_keys"] for a in spans)
+    assert any(line.startswith("sliding-window layers read")
+               for line in tracing.summary(tracer.spans()))
+
+
+def test_absent_choices_are_counted_on_a_known_routing():
+    """8 experts top-2 of which 0-3 are held; a selection bias of 10 on
+    experts 0 and 5 makes every token choose both: per real token and
+    sparse layer one row computed (expert 0, the only one read) and one
+    choice absent, on each drain span and in the summary's share (50%)."""
+    import dataclasses
+    from repro_torch.configs.base import RoutedMoEConfig
+    moe = RoutedMoEConfig(n_experts=8, top_k=2, d_ff=32, capacity_factor=4.0,
+                          scoring="sigmoid", n_held=4)
+    cfg = _layered(family="moe", moe=moe, moe_impl="scatter",
+                   layer_sparse=(False, True, True, True))
+    eng = TorchEngine(cfg, EngineConfig(n_slots=4, max_context=256,
+                                        chunk_buckets=(1, 16, 32, 64)),
+                      device="cpu")
+    for lp in eng.params["layers"][1:]:
+        lp["moe"]["router_bias"][[0, 5]] = 10.0
+    tracer = tracing.Tracer()
+    _serve(eng, tracer)
+    spans = tracer.spans()
+    dispatch = {s.attrs["round"]: s.attrs for s in spans
+                if s.name == "engine.dispatch"}
+    drains = [s for s in spans if s.name == "engine.drain"]
+    assert drains
+    for s in drains:
+        a = dispatch[s.attrs["round"]]
+        tokens = a["prefill_tokens"] + a["decode_tokens"]
+        assert s.attrs["expert_rows"] == s.attrs["absent_choices"] == 3 * tokens
+        assert s.attrs["experts_read"] == 3
+    assert any("not held here" in line and "(50.0%)" in line
+               for line in tracing.summary(spans))
