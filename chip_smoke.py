@@ -134,9 +134,9 @@ Phases, each of which raises (exit code != 0) on failure:
    ``fused_swiglu_ref``; hidden-rounding counts printed.  Timed against the
    plain version and ``library_ms`` (``torch.matmul`` and ``F.silu``, a
    yardstick).
-16. standalone entry points: ``ops.flash_decode_attention`` and
-   ``ops.swiglu_ffn`` (no serve path calls their kernels, as in the
-   reference) launch exactly their kernels; their counts are the JSON's.
+16. standalone kernels: ``decode_attention`` and ``fused_swiglu`` (no serve
+   path calls them, as in the reference) launch exactly their kernels and
+   give the same bits twice; their counts are the JSON's.
 17. serve, dense: ``--full --dense-kv``: every request finishes,
    ``chunked_prefill_attention`` runs exactly 24 times per round at every
    bucket (C = 1 included) and no other kernel runs.
@@ -2037,11 +2037,10 @@ def swiglu_phase(torch, ffn0):
 # -- phase 16: the standalone kernels through their entry points --------------
 def standalone_phase(torch, ffn0):
     """``decode_attention`` and ``fused_swiglu`` run on no serve path (as in
-    the reference); a user reaches them through ``ops.flash_decode_attention``
-    and ``ops.swiglu_ffn``.  One call of each, at the dense serve's decode
-    shape and full-width qwen1.5-0.5b's FFN at M = 256, must launch exactly
-    its kernel and nothing else; returns the launch counts."""
-    from repro_torch.kernels import ops
+    the reference); a user calls them from their modules.  One call of each,
+    at the dense serve's decode shape and full-width qwen1.5-0.5b's FFN at
+    M = 256, must launch exactly its kernel and nothing else, and a second
+    call must give the same bits; returns the first calls' launch counts."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.fused_swiglu import fused_swiglu
 
@@ -2056,17 +2055,17 @@ def standalone_phase(torch, ffn0):
                     device="cuda").to(w[0].dtype)
     torch.cuda.synchronize()
     zero_launches()
-    got_d = ops.flash_decode_attention(q, k, v, kv_lens, block_k=256)
-    got_s = ops.swiglu_ffn(x, *w, block_m=256, block_f=256)
+    got_d = decode_attention(q, k, v, kv_lens)
+    got_s = fused_swiglu(x, *w)
     torch.cuda.synchronize()
     launches = read_launches()
     want = {n: int(n in ("decode_attention", "fused_swiglu"))
             for n in launches}
-    require(launches == want, f"entry points launched {launches}")
+    require(launches == want, f"standalone kernels launched {launches}")
     require(same_bits(got_d, decode_attention(q, k, v, kv_lens))
             and same_bits(got_s, fused_swiglu(x, *w)),
-            "an entry point's output differs from its kernel's")
-    log(f"  ops.flash_decode_attention and ops.swiglu_ffn launched "
+            "a standalone kernel's second call differs from its first")
+    log(f"  decode_attention and fused_swiglu launched "
         f"{ {n: c for n, c in launches.items() if c} } and nothing else")
     return launches
 
@@ -4782,8 +4781,7 @@ def main() -> int:
     paged_poison_phase(torch)
     log("== fused SwiGLU kernel vs plain versions")
     swiglu_kern = swiglu_phase(torch, ffn0)
-    log("== standalone kernels through ops.flash_decode_attention and "
-        "ops.swiglu_ffn")
+    log("== standalone kernels: decode_attention and fused_swiglu")
     standalone_launches = standalone_phase(torch, ffn0)
     torch.cuda.empty_cache()
     log("== serve, dense (--full --dense-kv)")

@@ -70,9 +70,9 @@ from repro_torch.engine.metrics import (
     summarize_memory, summarize_robustness, summarize_slo,
 )
 from repro_torch.engine.sampler import SamplerConfig, sample_tokens
-from repro_torch.kernels.ops import (
-    gather_swap_pages, gather_swap_pages_q8, scatter_swap_pages,
-    scatter_swap_pages_q8,
+from repro_torch.kernels.swap import (
+    swap_gather_pages, swap_gather_pages_q8, swap_scatter_pages,
+    swap_scatter_pages_q8,
 )
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.transformer import torch_dtype
@@ -85,20 +85,13 @@ class EngineConfig:
     n_slots: int = 16
     max_context: int = 1024
     chunk_buckets: Tuple[int, ...] = (1, 16, 32, 64, 128, 256)
-    # kept for config parity with the JAX engine: the port picks kernel or
-    # plain version by the tensors' device (CUDA: kernels), not by this flag
-    use_pallas: bool = False
     paged_kv: bool = True             # False: dense per-slot KV (A/B layout)
     kv_block_size: int = 16           # page size when the engine owns its pool
-    # accepted, no effect: the TPU meaning (pages DMA-gathered per tile,
-    # VMEM buffers per grid) does not carry over to the CUDA kernels
-    pages_per_tile: int = 1
     # physical page-pool layout: "split" keeps separate K and V pools;
     # "fused" interleaves them on the head axis ([K0,V0,K1,V1,...]) so the
     # attention kernels read each key's K and V as one contiguous run and
     # a swap moves one payload tensor
     kv_layout: str = "split"
-    buffering_depth: int = 1
     pipelined: bool = True            # overlap schedule(N+1) with execute(N)
     # preemption mode: "recompute" discards a victim's KV (re-prefill from
     # scratch, the A/B default); "swap" stages it host-side and restores it
@@ -223,7 +216,6 @@ class TorchEngine:
         assert self.cfg.paged_kv or self.cfg.kv_layout == "split", (
             "kv_layout='fused' requires paged_kv=True"
         )
-        assert self.cfg.buffering_depth >= 1, self.cfg.buffering_depth
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.model: Model = build_model(model_cfg)
@@ -394,11 +386,7 @@ class TorchEngine:
         if self.cfg.paged_kv:
             logits = impl.chunked_step_paged(
                 self.params, tokens, self.cache, self.lens, chunk_lens,
-                self.block_tables, pages_per_tile=self.cfg.pages_per_tile,
-                kv_layout=self.cfg.kv_layout,
-                buffering_depth=self.cfg.buffering_depth,
-                moe_counts=self._moe_counts,
-            )
+                self.block_tables, moe_counts=self._moe_counts)
         else:
             logits = impl.chunked_step(self.params, tokens, self.cache,
                                        self.lens, chunk_lens,
@@ -527,10 +515,10 @@ class TorchEngine:
                          device=self.device)
         for cache in self.cache.values():
             if self._host_quantized():
-                q, scales = gather_swap_pages_q8(cache, ids)
-                scatter_swap_pages_q8(cache, ids, q, scales)
+                q, scales = swap_gather_pages_q8(cache, ids)
+                swap_scatter_pages_q8(cache, ids, q, scales)
             else:
-                scatter_swap_pages(cache, ids, gather_swap_pages(cache, ids))
+                swap_scatter_pages(cache, ids, swap_gather_pages(cache, ids))
 
     # -- slot management -------------------------------------------------------
     def acquire_slot(self, req: Request) -> bool:
@@ -616,8 +604,8 @@ class TorchEngine:
         if self.cfg.paged_kv:
             ids, _n = self._swap_page_ids(req.req_id)
             d_ids = self._upload(ids)
-            gather = (gather_swap_pages_q8 if self._host_quantized()
-                      else gather_swap_pages)
+            gather = (swap_gather_pages_q8 if self._host_quantized()
+                      else swap_gather_pages)
             staged = tuple(gather(c, d_ids) for c in self.cache.values())
         else:
             # dense layout: a copy of the whole slot row (positions past the
@@ -669,10 +657,10 @@ class TorchEngine:
         for cache, staged in zip(self.cache.values(), payload):
             if isinstance(staged, tuple):
                 q, scales = staged
-                scatter_swap_pages_q8(cache, d_ids, self._upload(q),
+                swap_scatter_pages_q8(cache, d_ids, self._upload(q),
                                       self._upload(scales))
             else:
-                scatter_swap_pages(cache, d_ids,
+                swap_scatter_pages(cache, d_ids,
                                    self._upload(staged).view(cache.dtype))
 
     def _restored(self, req: Request, slot: int) -> None:

@@ -1,2 +1,3 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), each beside its plain
-PyTorch version, and the dispatch the model calls (``ops``)."""
+PyTorch version.  Callers import each kernel's module: a CPU tensor takes
+the plain version, a CUDA tensor the kernel, or the call raises."""

@@ -6,7 +6,7 @@ Replaces the TPU kernel ``decode_attention``
 query token per sequence, q ``(B, Hq, hd)``, against the cache ``(B, S, Hkv,
 hd)``; keys at positions ``>= kv_len`` are masked.  No model path calls it
 (the dense engine's decode rounds run ``chunked_prefill_attention`` with one
-query, as the reference's do); ``ops.flash_decode_attention`` exposes it.
+query, as the reference's do); a user calls ``decode_attention`` here.
 
 Bound on an H100: bytes at small groups -- each sequence's live K and V
 read once per kv head, ``group`` FLOPs per bf16 byte.  The kernel

@@ -7,7 +7,7 @@ every product accumulates in f32 and the hidden tile is rounded to
 ``x.dtype`` before the down product.  ``fused_swiglu_plain`` computes
 exactly that; ``fused_swiglu_ref`` (the jnp oracle's port) keeps the hidden
 activations f32.  No model path calls it (``layers.ffn`` is plain, as the
-reference's is); ``ops.swiglu_ffn`` exposes it.
+reference's is); a user calls ``fused_swiglu`` here.
 
 Bound on an H100: operations at model widths -- ``6 * M * D * F`` FLOPs
 against ``6 * D * F`` weight bytes in bf16 -- and bytes at small M.  In

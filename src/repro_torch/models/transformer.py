@@ -23,7 +23,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.op_cost import checkpoint, trip_fill, trip_items
-from repro_torch.kernels import ops as kops
+from repro_torch.kernels.chunked_prefill_attention import (
+    chunked_prefill_attention,
+)
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_attention, paged_decode_attention_fused,
+)
+from repro_torch.kernels.paged_prefill_attention import (
+    paged_prefill_attention, paged_prefill_attention_fused,
+)
 from repro_torch.models import layers as L
 
 
@@ -81,15 +89,37 @@ def _block_ffn(p, x, cfg: ModelConfig, lane_mask=None, moe_counts=None):
     return x + out
 
 
+def _layer(p, x, l: int, cfg: ModelConfig, positions, attend, rope_tabs=None,
+           lane_mask=None, moe_counts=None):
+    """Decoder layer ``l`` by its kind (``ModelConfig.rope``; ``qk_norm``
+    and ``post_norm``): pre-norm, or each branch normed on its output; RoPE
+    or none (``rope_tabs``: the round's tables, else computed here);
+    ``attend(q, k, v)`` stores the new K/V where its caller keeps them and
+    returns the attention output; then ``_block_ffn`` (``lane_mask`` and
+    ``moe_counts`` as there)."""
+    h = x if cfg.post_norm else L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v = L.qkv_project(p["attn"], h, cfg, positions, rope=cfg.rope(l),
+                            rope_tabs=rope_tabs)
+    a = L.attn_output(p["attn"], attend(q, k, v), cfg)
+    if cfg.post_norm:
+        a = L.rms_norm(a, p["post_attn_norm"], cfg.norm_eps)
+    return _block_ffn(p, x + a, cfg, lane_mask, moe_counts)
+
+
+# The whole-sequence entry points and the hybrid family run layers of one
+# kind only (``TransformerLM._uniform``): each block is layer 0's kind.
+
 def _block_fwd(p, x, positions, cfg: ModelConfig, collect_kv: bool):
     """Full-sequence causal block (train / prefill): (x, (k, v) or None)."""
-    h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    q, k, v = L.qkv_project(p["attn"], h, cfg, positions)
-    attn = L.attention(q, k, v, q_offset=0, causal=True,
-                       sliding_window=cfg.sliding_window)
-    x = x + L.attn_output(p["attn"], attn, cfg)
-    x = _block_ffn(p, x, cfg)
-    return x, ((k, v) if collect_kv else None)
+    kv = []
+
+    def attend(q, k, v):
+        kv.append((k, v))
+        return L.attention(q, k, v, q_offset=0, causal=True,
+                           sliding_window=cfg.window(0))
+
+    x = _layer(p, x, 0, cfg, positions, attend)
+    return x, (kv[0] if collect_kv else None)
 
 
 def _write_rows(cache, bidx, slot, new):
@@ -114,28 +144,23 @@ def _block_decode(p, x, cache_k, cache_v, lens, cfg: ModelConfig,
     linear cache's write at ``lens >= S`` is dropped, and attention then
     spans the S cached keys (``kv_lens = lens + 1``).
     """
-    B = x.shape[0]
-    h = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    q, k_new, v_new = L.qkv_project(p["attn"], h, cfg, lens[:, None])
+    window = cfg.window(0)
 
-    W = cache_k.shape[1]
-    slot = lens % W if cfg.sliding_window else lens
-    bidx = torch.arange(B, device=x.device)
-    _write_rows(cache_k, bidx, slot, k_new[:, 0])
-    _write_rows(cache_v, bidx, slot, v_new[:, 0])
-
-    if cfg.sliding_window:
-        _write_rows(kv_positions, bidx, slot, lens.to(kv_positions.dtype))
-        attn = L.attention(q, cache_k, cache_v, q_offset=lens, causal=True,
-                           sliding_window=cfg.sliding_window,
-                           kv_positions=kv_positions)
-    else:
-        kv_positions = None
-        attn = L.attention(q, cache_k, cache_v, q_offset=lens,
+    def attend(q, k_new, v_new):
+        slot = lens % cache_k.shape[1] if window else lens
+        bidx = torch.arange(x.shape[0], device=x.device)
+        _write_rows(cache_k, bidx, slot, k_new[:, 0])
+        _write_rows(cache_v, bidx, slot, v_new[:, 0])
+        if window:
+            _write_rows(kv_positions, bidx, slot, lens.to(kv_positions.dtype))
+            return L.attention(q, cache_k, cache_v, q_offset=lens,
+                               causal=True, sliding_window=window,
+                               kv_positions=kv_positions)
+        return L.attention(q, cache_k, cache_v, q_offset=lens,
                            kv_lens=lens + 1)
-    x = x + L.attn_output(p["attn"], attn, cfg)
-    x = _block_ffn(p, x, cfg)
-    return x, cache_k, cache_v, kv_positions
+
+    x = _layer(p, x, 0, cfg, lens[:, None], attend)
+    return x, cache_k, cache_v, (kv_positions if window else None)
 
 
 class TransformerLM:
@@ -315,14 +340,12 @@ class TransformerLM:
         storage -- a shared sink page, or a slot's sink row -- would reach
         other rows' masked-position 0*V products or the NaN guard's scan.
         Zeroing also makes duplicate sink indices harmless: every write to
-        that row carries the same value.  ``moe_counts`` (2,) int64, if
-        given, gains each MoE layer's (experts read, expert rows).  Returns
+        that row carries the same value.  ``moe_counts`` (3,) int64, if
+        given, gains each MoE layer's counts (``L.moe_round``).  Returns
         the logits at each slot's last chunk position.
 
-        Each layer runs by its kind (``ModelConfig.window``, ``rope``,
-        ``sparse``; ``qk_norm`` and ``post_norm``): pre-norm, or each
-        branch normed on its output; RoPE or none; its window in
-        ``attend``; the dense FFN or the experts."""
+        Each layer runs by its kind (``_layer``; its window in
+        ``attend``)."""
         cfg = self.cfg
         keep = write_mask[:, :, None, None]
         x = params["embed"][tokens.long()]
@@ -330,19 +353,11 @@ class TransformerLM:
         rope_tabs = L.rope_tables(positions, cfg.resolved_head_dim,
                                   cfg.rope_theta)
         for l, lp in enumerate(params["layers"]):
-            # each layer by its kind: pre- or post-norm, RoPE or none, its
-            # window (``attend``), dense or experts (``_block_ffn``)
-            h = x if cfg.post_norm else L.rms_norm(x, lp["attn_norm"],
-                                                   cfg.norm_eps)
-            q, k_new, v_new = L.qkv_project(lp["attn"], h, cfg, positions,
-                                            rope=cfg.rope(l),
-                                            rope_tabs=rope_tabs)
-            k_new = torch.where(keep, k_new, 0.0)
-            v_new = torch.where(keep, v_new, 0.0)
-            a = L.attn_output(lp["attn"], attend(l, q, k_new, v_new), cfg)
-            if cfg.post_norm:
-                a = L.rms_norm(a, lp["post_attn_norm"], cfg.norm_eps)
-            x = _block_ffn(lp, x + a, cfg, write_mask, moe_counts)
+            def attend_l(q, k_new, v_new, l=l):
+                return attend(l, q, torch.where(keep, k_new, 0.0),
+                              torch.where(keep, v_new, 0.0))
+            x = _layer(lp, x, l, cfg, positions, attend_l, rope_tabs,
+                       write_mask, moe_counts)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         last = (chunk_lens - 1).clamp(min=0).long()
         x_last = x[torch.arange(x.shape[0], device=x.device), last]  # (B, D)
@@ -388,23 +403,21 @@ class TransformerLM:
             ck, cv = cache["k"][l], cache["v"][l]
             ck.index_put_((bidx, write_pos), k_new)
             cv.index_put_((bidx, write_pos), v_new)
-            return kops.prefill_chunk_attention(q, ck[:, :-1], cv[:, :-1],
-                                                kv_lens, lens)
+            return chunked_prefill_attention(q, ck[:, :-1], cv[:, :-1],
+                                             kv_lens, lens)
 
         return self._round(params, tokens, positions, write_mask, chunk_lens,
                            attend, moe_counts)
 
     def chunked_step_paged(self, params, tokens, kv_pages, lens, chunk_lens,
-                           block_tables, *, pages_per_tile: int = 1,
-                           kv_layout: str = "split",
-                           buffering_depth: int = 1, moe_counts=None):
+                           block_tables, *, moe_counts=None):
         """One chunked-prefill round against a paged KV cache (vLLM layout).
 
         tokens (B, C) right-padded; kv_pages {"k", "v"} each
         ``(L, n_pages, page_size, Hkv, hd)`` (split layout) or {"kv"}
         ``(L, n_pages, page_size, 2*Hkv, hd)`` with heads ``[K0,V0,K1,V1,
-        ...]`` (``kv_layout="fused"``: the round's new K/V interleave into
-        ONE scatter per layer); lens (B,) int32 tokens already
+        ...]`` (fused layout: the round's new K/V interleave into ONE
+        scatter per layer); lens (B,) int32 tokens already
         cached; chunk_lens (B,) int32 tokens this round (decode 1, prefill
         its chunk, idle 0); block_tables (B, max_pages) int32.  New K/V for
         position ``p`` of slot ``b`` goes to flat row
@@ -420,9 +433,8 @@ class TransformerLM:
         kernel's windowed instantiation.  Each layer runs by its kind
         (``_round``).  ``moe_counts``: the MoE counter (``_round``).
         """
-        assert kv_layout in ("split", "fused"), kv_layout
         cfg = self.cfg
-        fused = kv_layout == "fused"
+        fused = "kv" in kv_pages
         B, C = tokens.shape
         n_phys, ps = (kv_pages["kv"] if fused else kv_pages["k"]).shape[1:3]
         dev = tokens.device
@@ -444,60 +456,51 @@ class TransformerLM:
             if fused:
                 return self._attend_fused(
                     kv_pages["kv"][l], q, k_new, v_new, write_pos,
-                    block_tables, kv_lens, lens, pages_per_tile,
-                    buffering_depth, cfg.window(l))
+                    block_tables, kv_lens, lens, cfg.window(l))
             return self._attend_split(
                 kv_pages["k"][l], kv_pages["v"][l], q, k_new, v_new,
-                write_pos, block_tables, kv_lens, lens, pages_per_tile,
-                buffering_depth, cfg.window(l))
+                write_pos, block_tables, kv_lens, lens, cfg.window(l))
 
         return self._round(params, tokens, positions, write_mask, chunk_lens,
                            attend, moe_counts)
 
     @staticmethod
     def _attend_split(ck, cv, q, k_new, v_new, write_pos, block_tables,
-                      kv_lens, lens, pages_per_tile, buffering_depth,
-                      window=0):
+                      kv_lens, lens, window=0):
         """Scatter one layer's new K and V into the split pools
         ``(n_phys, ps, Hkv, hd)`` and attend through them (over the last
         ``window`` positions of each query where ``window`` is set)."""
-        B, C = q.shape[:2]
-        n_rows = ck.shape[0] * ck.shape[1]
-        ck.view(n_rows, *ck.shape[2:]).index_put_(
-            (write_pos,), k_new.reshape(B * C, *k_new.shape[2:]))
-        cv.view(n_rows, *cv.shape[2:]).index_put_(
-            (write_pos,), v_new.reshape(B * C, *v_new.shape[2:]))
-        if C == 1:
-            return kops.paged_flash_decode_attention(
-                q[:, 0], ck, cv, block_tables, kv_lens,
-                pages_per_tile=pages_per_tile,
-                buffering_depth=buffering_depth, window=window,
-            )[:, None]
-        return kops.paged_prefill_chunk_attention(
-            q, ck, cv, block_tables, kv_lens, lens,
-            pages_per_tile=pages_per_tile, buffering_depth=buffering_depth,
-            window=window,
-        )
+        _scatter_rows(ck, write_pos, k_new)
+        _scatter_rows(cv, write_pos, v_new)
+        return _paged_attention(q, (ck, cv), block_tables, kv_lens, lens,
+                                window)
 
     @staticmethod
     def _attend_fused(ckv, q, k_new, v_new, write_pos, block_tables, kv_lens,
-                      lens, pages_per_tile, buffering_depth, window=0):
+                      lens, window=0):
         """Interleave one layer's new K/V onto the head axis, write them
         with ONE scatter into the fused pool ``(n_phys, ps, 2*Hkv, hd)``
         and attend through it (``window`` as for ``_attend_split``)."""
         B, C, Hkv, hd = k_new.shape
         kv_new = torch.stack([k_new, v_new], dim=3).reshape(B, C, 2 * Hkv, hd)
-        n_rows = ckv.shape[0] * ckv.shape[1]
-        ckv.view(n_rows, 2 * Hkv, hd).index_put_(
-            (write_pos,), kv_new.reshape(B * C, 2 * Hkv, hd))
-        if C == 1:
-            return kops.paged_flash_decode_attention_fused(
-                q[:, 0], ckv, block_tables, kv_lens,
-                pages_per_tile=pages_per_tile,
-                buffering_depth=buffering_depth, window=window,
-            )[:, None]
-        return kops.paged_prefill_chunk_attention_fused(
-            q, ckv, block_tables, kv_lens, lens,
-            pages_per_tile=pages_per_tile, buffering_depth=buffering_depth,
-            window=window,
-        )
+        _scatter_rows(ckv, write_pos, kv_new)
+        return _paged_attention(q, (ckv,), block_tables, kv_lens, lens, window)
+
+
+def _scatter_rows(pool, write_pos, new):
+    """pool ``(n_phys, ps, H, hd)`` viewed as rows: row ``write_pos[i]`` =
+    lane ``i`` of ``new`` (B, C, H, hd), in place."""
+    pool.view(-1, *pool.shape[2:]).index_put_(
+        (write_pos,), new.reshape(-1, *new.shape[2:]))
+
+
+def _paged_attention(q, pools, block_tables, kv_lens, lens, window):
+    """q (B, C, Hq, hd) through ``pools``, the split ``(k, v)`` or the fused
+    ``(kv,)``: the paged decode kernel for C == 1, the prefill kernel
+    otherwise."""
+    fused = len(pools) == 1
+    if q.shape[1] == 1:
+        decode = paged_decode_attention_fused if fused else paged_decode_attention
+        return decode(q[:, 0], *pools, block_tables, kv_lens, window)[:, None]
+    prefill = paged_prefill_attention_fused if fused else paged_prefill_attention
+    return prefill(q, *pools, block_tables, kv_lens, lens, window)

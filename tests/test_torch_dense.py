@@ -45,7 +45,11 @@ from repro_torch.core.scheduler import ChunkedPrefillScheduler, SchedulerConfig
 from repro_torch.engine.engine import EngineConfig, TorchEngine, serve
 from repro_torch.engine.kv_cache import KVBlockPool, KVPoolConfig
 from repro_torch.engine.workload import shared_prefix
-from repro_torch.kernels import ops as kops
+from repro_torch.kernels.chunked_prefill_attention import (
+    chunked_prefill_attention,
+)
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.fused_swiglu import fused_swiglu
 from repro_torch.kernels.ref import fused_swiglu_ref
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.model import build_model as torch_build_model
@@ -118,9 +122,9 @@ def test_chunked_prefill_plain_matches_jax(rng, dtype, B, Sq, Skv, Hq, Hkv,
     kv_lens = q_off + Sq
     targs = (torch.from_numpy(np.array(kv_lens)),
              torch.from_numpy(np.array(q_off)))
-    got = kops.prefill_chunk_attention(_t(q), _t(k), _t(v), *targs)
-    strided = kops.prefill_chunk_attention(_t(q), _sink_view(k),
-                                           _sink_view(v), *targs)
+    got = chunked_prefill_attention(_t(q), _t(k), _t(v), *targs)
+    strided = chunked_prefill_attention(_t(q), _sink_view(k), _sink_view(v),
+                                        *targs)
     oracle = jref.chunked_prefill_attention_ref(q, k, v, kv_lens, q_off)
     pallas = pallas_chunked_prefill(q, k, v, kv_lens, q_off, block_q=blk_q,
                                     block_k=blk_k)
@@ -149,9 +153,8 @@ def test_decode_plain_matches_jax(rng, dtype, B, Hq, Hkv, hd, S, blk):
     v = _rand(rng, (B, S, Hkv, hd), dtype)
     lens = jnp.asarray(rng.integers(1, S + 1, B), jnp.int32)
     tlens = torch.from_numpy(np.array(lens))
-    got = kops.flash_decode_attention(_t(q), _t(k), _t(v), tlens)
-    strided = kops.flash_decode_attention(_t(q), _sink_view(k),
-                                          _sink_view(v), tlens)
+    got = decode_attention(_t(q), _t(k), _t(v), tlens)
+    strided = decode_attention(_t(q), _sink_view(k), _sink_view(v), tlens)
     oracle = jref.decode_attention_ref(q, k, v, lens)
     pallas = pallas_decode(q, k, v, lens, block_k=blk)
     np.testing.assert_array_equal(_np(strided), _np(got))
@@ -190,7 +193,7 @@ def test_fused_swiglu_plain_matches_jax(rng, dtype, M, D, F, bm, bf):
     wu = _rand(rng, (D, F), dtype) * s
     wd = _rand(rng, (F, D), dtype) * s
     targs = [_t(a) for a in (x, wg, wu, wd)]
-    got = _np(kops.swiglu_ffn(*targs))
+    got = _np(fused_swiglu(*targs))
     kernel = np.asarray(pallas_swiglu(x, wg, wu, wd, block_m=bm, block_f=bf),
                         np.float32)
     oracle = np.asarray(jref.fused_swiglu_ref(x, wg, wu, wd), np.float32)

@@ -100,8 +100,13 @@ def test_port_imports_no_jax_and_no_repro():
     code = (
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.engine.engine\n"
-        "import repro_torch.weights, repro_torch.kernels.ops\n"
-        "import repro_torch.disagg, repro_torch.kernels.swap\n"
+        "import repro_torch.weights, repro_torch.disagg\n"
+        "import repro_torch.kernels.chunked_prefill_attention\n"
+        "import repro_torch.kernels.decode_attention\n"
+        "import repro_torch.kernels.fused_swiglu\n"
+        "import repro_torch.kernels.paged_decode_attention\n"
+        "import repro_torch.kernels.paged_prefill_attention\n"
+        "import repro_torch.kernels.swap\n"
         "import repro_torch.core.predictor\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"

@@ -126,7 +126,7 @@ def serve_logits(mcfg, params, layout):
             c = CHUNKS[(r + b) % len(CHUNKS)]
             lists.append(p[done[b]:done[b] + c])
         r += 1
-        logits = _round(impl, layout, pool, lens, tables, lists, counts,
+        logits = _round(impl, pool, lens, tables, lists, counts,
                         mcfg, params)
         for b, t in enumerate(lists):
             done[b] += len(t)
@@ -137,7 +137,7 @@ def serve_logits(mcfg, params, layout):
         lists = [[(s[-1] + 1) % mcfg.vocab_size] for s in seqs]
         for s, t in zip(seqs, lists):
             s.extend(t)
-        logits = _round(impl, layout, pool, lens, tables, lists, counts,
+        logits = _round(impl, pool, lens, tables, lists, counts,
                         mcfg, params)
         lens += 1
         for b in range(B):
@@ -145,7 +145,7 @@ def serve_logits(mcfg, params, layout):
     return seqs, [torch.stack(g) for g in got], counts
 
 
-def _round(impl, layout, pool, lens, tables, lists, counts, mcfg, params):
+def _round(impl, pool, lens, tables, lists, counts, mcfg, params):
     C = max(1, max(len(t) for t in lists))
     tokens = torch.zeros((len(lists), C), dtype=torch.long)
     chunk = torch.zeros(len(lists), dtype=torch.int32)
@@ -153,8 +153,7 @@ def _round(impl, layout, pool, lens, tables, lists, counts, mcfg, params):
         tokens[b, :len(t)] = torch.tensor(t, dtype=torch.long)
         chunk[b] = len(t)
     return impl.chunked_step_paged(params, tokens, pool, lens.clone(), chunk,
-                                   tables, kv_layout=layout,
-                                   moe_counts=counts)
+                                   tables, moe_counts=counts)
 
 
 def reference_logits(config, stacks, seqs):

@@ -8,7 +8,7 @@ head 2h and V at 2h+1.  Checked here, on numpy-made inputs:
     reference's fused jnp oracles and, at one shape, its fused Pallas
     kernels in interpret mode -- GQA groups 1/2/4, ragged lengths, permuted
     tables, an idle row, f32 and bf16.
-(b) ``chunked_step_paged(kv_layout="fused")``: logits and the un-interleaved
+(b) ``chunked_step_paged`` on a fused pool: logits and the un-interleaved
     pool against the JAX fused step over a 4-round mixed schedule, and the
     logits against the port's own split step.
 (c) greedy ``serve()``: fused == split inside the port, sync and pipelined;
@@ -248,7 +248,7 @@ def _run_fused_schedule(name, param_dtype, rng, overrides):
         targs = (torch.from_numpy(tokens), None, torch.from_numpy(lens),
                  torch.from_numpy(chunk_lens), torch.from_numpy(tables))
         flogits = timpl.chunked_step_paged(tparams, targs[0], fcache,
-                                           *targs[2:], kv_layout="fused")
+                                           *targs[2:])
         slogits = timpl.chunked_step_paged(tparams, targs[0], scache,
                                            *targs[2:])
         live = chunk_lens > 0

@@ -372,7 +372,7 @@ def _mixed_rounds(cfg, layout, seed):
             logits = model.chunked_step(params, tokens, cache, lens, chunk)
         else:
             logits = model.chunked_step_paged(params, tokens, cache, lens,
-                                              chunk, tables, kv_layout=layout)
+                                              chunk, tables)
         lens = lens + chunk
         out.append(logits)
     return out, cache

@@ -644,8 +644,7 @@ def test_paged_round_with_idle_slots_matches_jax(arctic, layout, cf):
                             jnp.asarray(tables), kv_layout=layout)
         got = timpl.chunked_step_paged(
             tparams, torch.from_numpy(tokens), tpool, torch.from_numpy(lens),
-            torch.from_numpy(chunk_lens), torch.from_numpy(tables),
-            kv_layout=layout)
+            torch.from_numpy(chunk_lens), torch.from_numpy(tables))
         live = chunk_lens > 0
         w = np.asarray(want, np.float32)[live]
         np.testing.assert_allclose(got.numpy()[live], w, rtol=1e-4,
