@@ -3,10 +3,15 @@ stamps alone (``Request.token_times``: when a token's id reached the host,
 at drain), on the serve clock (seconds since the run's start).
 
 The window is ``[t0, t1)``.  Every request is timed from when it was due,
-not from when the loop took it.  Censoring: a request due in the window
-with no token by ``t1`` enters the TTFT tail with its age at ``t1``; a
-member of the E2E cohort (due in the window's first half) that has not
-finished by ``t1`` enters with its age at ``t1``.  So a stall cannot hide.
+not from when the loop took it.  ``out_tok_s`` counts the tokens of the
+window's own requests (due in ``[t0, t1)``) whose ids reached the host in
+``[t0, t1)``; a lead-in request's late tokens would credit a slower system.
+Its ceiling is the window's requests' asked-for tokens over ``t1 - t0``,
+which a cell below its knee nears as more of them finish by ``t1``.
+Censoring: a request due in the window with no token by ``t1`` enters the
+TTFT tail with its age at ``t1``; a member of the E2E cohort (due in the
+window's first half) that has not finished by ``t1`` enters with its age
+at ``t1``.  So a stall cannot hide.
 
 The percentile is ``repro_torch.engine.metrics.percentiles``'s arithmetic
 (numpy's linear interpolation), copied here so the yardstick cannot move
@@ -40,7 +45,9 @@ def _done_at(r: Served, t1: float):
 
 
 def out_tokens(reqs: Sequence[Served], t0: float, t1: float) -> int:
-    return sum(1 for r in reqs for s in r.stamps if t0 <= s < t1)
+    """Stamps in the window of requests due in the window."""
+    return sum(1 for r in reqs if t0 <= r.due < t1
+               for s in r.stamps if t0 <= s < t1)
 
 
 def ttft_samples(reqs: Sequence[Served], t0: float, t1: float) -> List[float]:

@@ -11,8 +11,23 @@ T0, T1 = 10.0, 20.0
 def test_out_tokens_count_only_stamps_inside_the_window():
     reqs = [Served(due=9.0, max_new_tokens=4, stamps=[9.5, 10.0, 19.9, 20.0]),
             Served(due=12.0, max_new_tokens=2, stamps=[12.5, 13.0])]
-    assert e.out_tokens(reqs, T0, T1) == 4          # 10.0, 19.9, 12.5, 13.0
-    assert e.compute(reqs, T0, T1)["out_tok_s"] == pytest.approx(0.4)
+    # the request due at 9.0 is the lead-in's: none of its tokens count
+    assert e.out_tokens(reqs, T0, T1) == 2          # 12.5, 13.0
+    assert e.compute(reqs, T0, T1)["out_tok_s"] == pytest.approx(0.2)
+
+
+def test_out_tokens_never_rise_when_stamps_come_later():
+    """A slower system delivers every token later; the count of the
+    window's tokens can only fall, a lead-in request's included."""
+    base = [Served(due=8.0, max_new_tokens=3, stamps=[9.0, 9.4, 9.8]),
+            Served(due=9.5, max_new_tokens=3, stamps=[9.9, 10.3, 10.7]),
+            Served(due=11.0, max_new_tokens=3, stamps=[11.5, 12.0, 12.5]),
+            Served(due=18.0, max_new_tokens=4, stamps=[18.5, 19.0, 19.5, 19.9])]
+    counts = [e.out_tokens([Served(r.due, r.max_new_tokens,
+                                   [s + 0.25 * k for s in r.stamps])
+                            for r in base], T0, T1) for k in range(12)]
+    assert all(b <= a for a, b in zip(counts, counts[1:])), counts
+    assert counts[0] == 7 and counts[-1] < counts[0]
 
 
 def test_ttft_from_due_time_and_censored_at_the_end():

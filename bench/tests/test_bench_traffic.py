@@ -67,3 +67,17 @@ def test_a_held_out_schedule_is_other_work_drawn_alike(mix):
     held = work(traffic["base_seed"] + 1)
     assert held == work(traffic["base_seed"] + 1) and held != base
     assert len(held) == len(base)
+
+
+def test_longdoc_window_asks_for_the_same_tokens_on_every_seed():
+    """The ceiling of ``out_tok_s`` in ``k-exaone-8l.longdoc`` (0.84 req/s,
+    51 s): the window's requests ask for 7,069 tokens, 138.61 tokens/s;
+    the lead-in's 4 ask for 896, which the metric does not count."""
+    traffic = json.loads((ROOT / "bench/traffic/longdoc.json").read_text())
+    for seed in (3, 2**31 + 77):
+        items = traffic_gen.generate(traffic, 0.84, 51, seed, 32000)
+        window = [x.max_new_tokens for x in items if x.in_window]
+        lead = [x.max_new_tokens for x in items if not x.in_window]
+        assert (len(window), sum(window)) == (43, 7069)
+        assert (len(lead), sum(lead)) == (4, 896)
+        assert sum(window) / 51 == pytest.approx(138.6078, abs=1e-4)
